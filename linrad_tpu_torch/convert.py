@@ -1,0 +1,79 @@
+"""Tables and state carried between linrad_tpu and this port.
+
+A table or state tree travels as a flat dict of numpy arrays keyed by
+dataclass field path ("fft1.window", "mix1.phase_idx", "timf2_syn", ...).
+:func:`flatten` builds such a dict from any tree of dataclasses whose
+leaves convert with ``np.asarray`` (the JAX package's pytrees) or are
+torch tensors; None fields are left out.  :func:`tables_from_numpy` and
+:func:`state_from_numpy` build this port's ``RxTables``/``RxState`` from
+the keys they need, with each array's dtype kept.  Nothing here imports
+jax.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import typing
+
+import numpy as np
+import torch
+
+from .pipeline.chain import RxState, RxTables
+
+
+def flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
+    """Dataclass tree -> {field path: numpy array}."""
+    out: dict[str, np.ndarray] = {}
+    for f in dataclasses.fields(tree):
+        v = getattr(tree, f.name)
+        key = prefix + f.name
+        if v is None:
+            continue
+        if dataclasses.is_dataclass(v):
+            out.update(flatten(v, key + "."))
+        elif isinstance(v, torch.Tensor):
+            out[key] = v.detach().cpu().numpy()
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def _dataclass_of(hint):
+    """The dataclass type named by a field annotation (X or X | None)."""
+    for a in typing.get_args(hint) or (hint,):
+        if dataclasses.is_dataclass(a):
+            return a
+    return None
+
+
+def _build(cls, tree: dict, device, prefix: str):
+    hints = typing.get_type_hints(cls)
+    kw = {}
+    for f in dataclasses.fields(cls):
+        key = prefix + f.name
+        sub = _dataclass_of(hints[f.name])
+        if sub is not None:
+            present = any(k.startswith(key + ".") for k in tree)
+            kw[f.name] = _build(sub, tree, device, key + ".") if present \
+                else None
+        elif key in tree:
+            kw[f.name] = torch.from_numpy(
+                np.array(tree[key], order="C")).to(device)
+        else:
+            kw[f.name] = None
+    return cls(**kw)
+
+
+def tables_from_numpy(tree: dict, device) -> RxTables:
+    """Flat numpy dict (JAX ``RxTables`` flattened) -> port RxTables."""
+    return _build(RxTables, tree, device, "")
+
+
+def state_from_numpy(tree: dict, device) -> RxState:
+    """Flat numpy dict (JAX ``RxState`` flattened) -> port RxState."""
+    return _build(RxState, tree, device, "")
+
+
+def state_to_numpy(state: RxState) -> dict[str, np.ndarray]:
+    """Port RxState -> flat numpy dict, keyed as the JAX state."""
+    return flatten(state)
