@@ -7,9 +7,11 @@ fields, in PyTorch, with the TPU's Pallas kernel rewritten as a CUDA
 kernel for Hopper (``csrc/fused_fft1.cu``).
 
 Ported so far: the flagship receive step, ``pipeline.chain.make_rx_step``
-and ``pipeline.receiver.Receiver``, for single-channel IQ with SSB
-demodulation.  Configurations off that slice raise NotImplementedError
-naming the ROADMAP entry that ports them.
+and ``pipeline.receiver.Receiver``, for IQ input with one or two
+channels, and the EME weak-signal path on top of it: adaptive
+polarization, the SSB, AM, FM and coherent detectors, and the AFC with
+drift tracking (``pipeline.control``).  Configurations off those slices
+raise NotImplementedError naming the ROADMAP entry that ports them.
 
 This package never imports jax.
 """

@@ -78,15 +78,23 @@ class Mix1State:
 
 def mix1_step(geo: Geometry, tables: Mix1Tables, state: Mix1State,
               spectra: torch.Tensor, center_bins: torch.Tensor,
-              tune_frac: torch.Tensor | None = None
+              tune_frac: torch.Tensor | None = None,
+              tune_slope: torch.Tensor | None = None
               ) -> tuple[Mix1State, torch.Tensor]:
     """Downconvert one step of fftx spectra to the timf3 stream.
 
     spectra: (n, N, C) complex64 fftx transforms at hop H samples;
-    center_bins: () or (n,) integer tuned bin(s); tune_frac: optional () or
-    (n,) float32 fractional bin offset (set_mix1_phases mix1.c:781-860).
+    center_bins: () or (n,) integer tuned bin(s) (per frame on the AFC
+    path, do_mix1_afc mix1.c:648); tune_frac: optional () or (n,) float32
+    fractional bin offset (set_mix1_phases mix1.c:781-860); tune_slope:
+    optional () or (n,) float32 frequency change across each frame in
+    big-FFT bins per hop, which linearises AFC drift within a frame
+    (requires tune_frac).
 
     Returns (new_state, timf3 (n * mix1_new_points, C) complex64)."""
+    if tune_slope is not None and tune_frac is None:
+        raise ValueError("tune_slope requires tune_frac (the slope "
+                         "linearises the fractional-bin ramp)")
     n, big_n, c = spectra.shape
     m = geo.mix1_size
     hop = geo.fftx_new_points
@@ -115,18 +123,20 @@ def mix1_step(geo: Geometry, tables: Mix1Tables, state: Mix1State,
                                geo.mix1_new_points, state.ola_carry)
     new_frac = state.frac_phase
     if tune_frac is not None:
-        ramp, new_frac = frac_ramp(geo, state.frac_phase, tune_frac, n)
+        ramp, new_frac = frac_ramp(geo, state.frac_phase, tune_frac,
+                                   tune_slope, n)
         timf3 = timf3 * ramp[:, None]
     return Mix1State(phase_idx=new_phase, ola_carry=carry,
                      frac_phase=new_frac), timf3
 
 
 def frac_ramp(geo: Geometry, frac_phase: torch.Tensor,
-              tune_frac: torch.Tensor, n: int
-              ) -> tuple[torch.Tensor, torch.Tensor]:
+              tune_frac: torch.Tensor, tune_slope: torch.Tensor | None,
+              n: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Residual-frequency ramp on the timf3 output: frac big-FFT bins ==
-    frac/m turns per timf3 sample (mix1.c:141-234).  The per-frame slope
-    of the JAX version (AFC drift tracking) is not ported.
+    frac/m turns per timf3 sample (mix1.c:141-234).  With tune_slope the
+    frequency is linear within each frame: frac is its value at the frame
+    midpoint, slope its change per hop.
 
     Returns (complex64 ramp of length n*mix1_new_points, final phase in
     turns)."""
@@ -134,6 +144,12 @@ def frac_ramp(geo: Geometry, frac_phase: torch.Tensor,
     hop_m = geo.mix1_new_points
     fr = torch.broadcast_to(tune_frac.to(torch.float32), (n,))
     per_samp = torch.repeat_interleave(fr / m, hop_m)
+    if tune_slope is not None:
+        sl = torch.broadcast_to(tune_slope.to(torch.float32), (n,))
+        pos = (torch.arange(hop_m, dtype=torch.float32, device=fr.device)
+               + 0.5) / hop_m - 0.5                   # (-0.5, 0.5)
+        per_samp = per_samp + torch.repeat_interleave(sl / m, hop_m) \
+            * pos.repeat(n)
     cum = frac_phase + torch.cumsum(per_samp, 0) - per_samp
     theta = (-2.0 * math.pi) * torch.remainder(cum, 1.0)
     ramp = torch.complex(torch.cos(theta), torch.sin(theta))

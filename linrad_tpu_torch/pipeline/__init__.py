@@ -1,1 +1,2 @@
-"""The receive chain (chain.py) and the host-side Receiver (receiver.py)."""
+"""The receive chain (chain.py), the host-side AFC control (control.py) and
+the Receiver (receiver.py)."""

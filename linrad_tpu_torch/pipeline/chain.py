@@ -1,16 +1,20 @@
 """The signal chain: one pipeline step (port of
 linrad_tpu/pipeline/chain.py).
 
-    state, outputs = step(tables, state, iq_block, tune_bin, tune_frac)
+    state, outputs = step(tables, state, iq_block, tune_bin, tune_frac,
+                          tune_slope)
 
 fft1 -> sellim -> weak/strong back transform -> noise floor, clever and
-stupid blankers -> fft2 -> mix1 -> fft3 -> mix2 -> BFO (SSB) -> AGC, on
-tensors that stay on one device.  PyTorch runs it eagerly; nothing in the
-step waits for the host.
+stupid blankers -> fft2 -> mix1 -> fft3 -> mix2 (and its carrier branch)
+-> adaptive polarization -> detector (SSB, AM, FM, coherent, none) ->
+AGC, on tensors that stay on one device.  PyTorch runs it eagerly;
+nothing in the step waits for the host.
 
-Ported configurations: single-channel IQ input, SSB demodulation, mixer
-mode 1, second FFT and blankers on or off, AGC on or off.  Everything
-else raises NotImplementedError naming the ROADMAP entry that ports it
+Ported configurations: IQ input with one or two channels, mixer mode 1,
+second FFT and blankers on or off, every detector, adaptive
+polarization, AGC on or off, and the AFC's per-frame tuning (tune_bin,
+tune_frac, tune_slope per frame).  Everything else raises
+NotImplementedError naming the ROADMAP entry that ports it
 (:func:`check_supported`).
 """
 
@@ -37,6 +41,7 @@ from ..ops.mix1 import Mix1State, Mix1Tables, mix1_step
 from ..ops.mix2 import Mix2State, Mix2Tables, mix2_step
 from ..ops.sellim import SellimState
 from ..ops.timf2 import Timf2State, make_timf2_syn, timf2_step
+from ..weak.pol import PolState, update_polarization
 
 
 def check_supported(p: RxParams) -> None:
@@ -45,22 +50,14 @@ def check_supported(p: RxParams) -> None:
     q13 = "ROADMAP queue 1 item 13"
     if p.input_mode != InputMode.IQ:
         refused.append(f"real input ({q13})")
-    if p.rx_rf_channels != 1:
-        refused.append(f"2-channel input ({q13})")
-    if p.demod != Demod.SSB:
-        refused.append(f"demod {p.demod.name} ({q13})")
     if p.mixer_mode != 1:
         refused.append(f"mixer_mode {p.mixer_mode} ({q13})")
     if p.squelch_enable:
         refused.append(f"squelch ({q13})")
     if p.expander_exponent > 1.0:
         refused.append(f"expander ({q13})")
-    if p.pol_adapt_enable:
-        refused.append(f"adaptive polarization ({q13})")
     if p.spur_enable:
         refused.append(f"spur cancellation ({q13})")
-    if p.afc_enable:
-        refused.append("AFC (ROADMAP queue 1 item 12)")
     if p.blanker_rounds > 0:
         refused.append("blanker_rounds>0, the TPU-only round-parallel "
                        "blanker (ROADMAP 'Not ported')")
@@ -111,14 +108,23 @@ class RxState:
     fft3: FFT3State
     mix2: Mix2State
     bfo: demod_ops.BFOState
+    am: demod_ops.AMState
+    fm: demod_ops.FMState
+    coh: demod_ops.CoherentState
     agc: agc_ops.AGCState
     sellim: SellimState | None
     timf2: Timf2State | None
     fft2: FFT2State | None
     blanker: BlankerState | None
+    pol: PolState | None = None
 
     @classmethod
-    def create(cls, geo: Geometry, device) -> "RxState":
+    def create(cls, geo: Geometry, device, pol: bool = False,
+               audio_channels: int | None = None) -> "RxState":
+        # adaptive polarization combines the 2 channels into 1 before the
+        # detectors, so the detector/AGC state is single-channel then;
+        # coherent mode 1 doubles it (signal ear + carrier ear)
+        c = audio_channels or (1 if pol else geo.channels)
         wide = geo.second_fft_enable
         return cls(
             fft1=FFT1State.create(geo, device),
@@ -126,11 +132,15 @@ class RxState:
             fft3=FFT3State.create(geo, device),
             mix2=Mix2State.create(geo, device),
             bfo=demod_ops.BFOState.create(device),
-            agc=agc_ops.AGCState.create(geo.channels, device),
+            am=demod_ops.AMState.create(c, device),
+            fm=demod_ops.FMState.create(c, device),
+            coh=demod_ops.CoherentState.create(c, device),
+            agc=agc_ops.AGCState.create(c, device),
             sellim=SellimState.create(geo, device) if wide else None,
             timf2=Timf2State.create(geo, device) if wide else None,
             fft2=FFT2State.create(geo, device) if wide else None,
-            blanker=BlankerState.create(geo, device) if wide else None)
+            blanker=BlankerState.create(geo, device) if wide else None,
+            pol=PolState.create(device) if pol else None)
 
 
 @dataclass
@@ -202,66 +212,107 @@ def _wideband_front(geo: Geometry, p: RxParams, blanker_pulsewidth: int,
 
 def narrowband_post_mix1(geo: Geometry, p: RxParams, tables: RxTables,
                          state: RxState, timf3: torch.Tensor):
-    """fft3 -> mix2 -> BFO (SSB) -> AGC on the timf3 stream.
+    """fft3 -> mix2 -> polarization -> detector -> AGC on the timf3
+    stream.
 
-    Returns (fft3, mix2, bfo, agc states, audio, baseb, agc_gain)."""
-    s_fft3, fft3_spec = fft3_step(geo, tables.fft3, state.fft3, timf3)
-    s_mix2, baseb = mix2_step(geo, tables.mix2, state.mix2, fft3_spec)
+    Returns (narrowband states as a dict, audio, baseb, agc_gain)."""
     fs_bb = geo.baseband_sampling_speed
-    s_bfo, audio = demod_ops.bfo_ssb(state.bfo, baseb, p.bfo_hz, fs_bb)
+    with_carrier = p.demod == Demod.COHERENT
+    s_fft3, fft3_spec = fft3_step(geo, tables.fft3, state.fft3, timf3)
+    s_mix2, baseb, carrier = mix2_step(geo, tables.mix2, state.mix2,
+                                       fft3_spec, with_carrier=with_carrier)
+    s_pol = state.pol
+    if p.pol_adapt_enable and geo.channels == 2:
+        # project the 2-channel baseband onto the dominant coherency
+        # eigenvector (pol_graph.c channel combination)
+        s_pol, combined, w = update_polarization(state.pol, baseb)
+        baseb = combined[:, None]
+        if carrier is not None:
+            carrier = (carrier @ w.conj())[:, None]
+    s_bfo, s_am, s_fm, s_coh = state.bfo, state.am, state.fm, state.coh
+    if p.demod == Demod.SSB:
+        s_bfo, audio = demod_ops.bfo_ssb(state.bfo, baseb, p.bfo_hz, fs_bb)
+    elif p.demod == Demod.AM:
+        s_am, audio = demod_ops.am_detect(state.am, baseb, fs_bb)
+    elif p.demod == Demod.FM:
+        s_fm, audio = demod_ops.fm_detect(state.fm, baseb, fs_bb)
+        if p.fm_deemphasis_us > 0:
+            audio, de_last = demod_ops.fm_deemphasis(
+                audio, fs_bb, p.fm_deemphasis_us, s_fm.deemph)
+            s_fm = demod_ops.FMState(last=s_fm.last, deemph=de_last)
+    elif p.demod == Demod.COHERENT:
+        if p.coherent_mode == 1:
+            # signal to one ear, the narrow carrier branch to the other
+            # (bg_coherent 1, mix2.c:1843-1876); both get the BFO product
+            s_bfo, audio = demod_ops.bfo_ssb(
+                state.bfo, torch.cat([baseb, carrier], dim=1), p.bfo_hz,
+                fs_bb)
+        else:
+            s_coh, audio_i, _audio_q = demod_ops.coherent_detect(
+                state.coh, baseb, carrier, fs_bb)
+            s_bfo, audio = demod_ops.bfo_ssb(
+                state.bfo, audio_i.to(torch.complex64), p.bfo_hz, fs_bb)
+    else:  # Demod.NONE: the baseband's real part as audio
+        audio = baseb.real
     if p.agc_enable:
         s_agc, audio, gain = agc_ops.agc(state.agc, audio, fs_bb,
                                          p.agc_attack_ms, p.agc_release_ms,
                                          p.agc_hang_ms)
     else:
         s_agc, gain = state.agc, torch.ones_like(audio)
-    return s_fft3, s_mix2, s_bfo, s_agc, audio, baseb, gain
+    nb = dict(fft3=s_fft3, mix2=s_mix2, bfo=s_bfo, am=s_am, fm=s_fm,
+              coh=s_coh, agc=s_agc, pol=s_pol)
+    return nb, audio, baseb, gain
 
 
 def narrowband_tail(geo: Geometry, p: RxParams, tables: RxTables,
                     state: RxState, fftx_spec: torch.Tensor,
                     tune_bin: torch.Tensor,
-                    tune_frac: torch.Tensor | None = None):
-    """mix1 -> fft3 -> mix2 -> BFO -> AGC for the tuned receiver.
+                    tune_frac: torch.Tensor | None = None,
+                    tune_slope: torch.Tensor | None = None):
+    """mix1 -> fft3 -> mix2 -> detector -> AGC for the tuned receiver.
+    With per-frame tune_frac and tune_slope (AFCTracker.frame_tuning)
+    mix1 follows a drifting signal coherently.
 
-    Returns (mix1, fft3, mix2, bfo, agc states, audio, baseb, agc_gain)."""
+    Returns (narrowband states as a dict, audio, baseb, agc_gain)."""
     s_mix1, timf3 = mix1_step(geo, tables.mix1, state.mix1, fftx_spec,
-                              tune_bin, tune_frac=tune_frac)
-    return (s_mix1,) + narrowband_post_mix1(geo, p, tables, state, timf3)
+                              tune_bin, tune_frac=tune_frac,
+                              tune_slope=tune_slope)
+    nb, audio, baseb, gain = narrowband_post_mix1(geo, p, tables, state,
+                                                  timf3)
+    nb["mix1"] = s_mix1
+    return nb, audio, baseb, gain
 
 
 def make_rx_step(geo: Geometry, p: RxParams, blanker_pulsewidth: int = 2,
                  fractional_tune: bool = False):
     """Build the step function for this configuration.
 
-    Returns ``step(tables, state, block, tune_bin, tune_frac=None) ->
-    (state, outputs)`` with block (samples_per_step, C) complex64 and
-    tune_bin an integer fftx bin tensor (retuning changes no shape).  With
+    Returns ``step(tables, state, block, tune_bin, tune_frac=None,
+    tune_slope=None) -> (state, outputs)`` with block (samples_per_step, C)
+    complex64 and tune_bin an integer fftx bin tensor, () or per frame
+    (n_fftx,) on the AFC path (retuning changes no shape).  With
     ``fractional_tune`` the step also applies ``tune_frac``, the float32
     bin fraction of set_mix1_phases (mix1.c:781), so any dial frequency
-    lands exactly at DC."""
+    lands exactly at DC, and ``tune_slope``, the per-frame drift in bins
+    per hop that the AFC supplies while it tracks."""
     check_supported(p)
 
     def step(tables: RxTables, state: RxState, block: torch.Tensor,
              tune_bin: torch.Tensor, tune_frac: torch.Tensor | None = None,
              tune_slope: torch.Tensor | None = None
              ) -> tuple[RxState, RxOutputs]:
-        if tune_slope is not None:
-            raise NotImplementedError("tune_slope (AFC drift tracking) is "
-                                      "not ported; see ROADMAP queue 1 "
-                                      "item 12")
         if not fractional_tune:
-            tune_frac = None
+            tune_frac = tune_slope = None
         tune0 = tune_bin.reshape(-1)[0]
         wide, fftx_spec, aux = _wideband_front(geo, p, blanker_pulsewidth,
                                                tables, state, block, tune0)
-        (s_mix1, s_fft3, s_mix2, s_bfo, s_agc, audio, baseb,
-         gain) = narrowband_tail(geo, p, tables, state, fftx_spec, tune_bin,
-                                 tune_frac=tune_frac)
-        new_state = RxState(fft1=wide["fft1"], mix1=s_mix1, fft3=s_fft3,
-                            mix2=s_mix2, bfo=s_bfo, agc=s_agc,
-                            sellim=wide["sellim"], timf2=wide["timf2"],
-                            fft2=wide["fft2"], blanker=wide["blanker"])
+        nb, audio, baseb, gain = narrowband_tail(
+            geo, p, tables, state, fftx_spec, tune_bin, tune_frac=tune_frac,
+            tune_slope=tune_slope)
+        new_state = RxState(fft1=wide["fft1"], sellim=wide["sellim"],
+                            timf2=wide["timf2"], fft2=wide["fft2"],
+                            blanker=wide["blanker"], **nb)
         outputs = RxOutputs(audio=audio, baseb=baseb,
                             fft1_power=aux["step_power"],
                             fft1_avg_power=wide["fft1"].sumsq_avg,

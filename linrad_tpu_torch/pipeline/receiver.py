@@ -1,14 +1,16 @@
 """Host-side receiver (port of linrad_tpu/pipeline/receiver.py:Receiver).
 
 Owns the configuration, builds geometry, tables and state on one device,
-and streams blocks through the step.  The host only slices input blocks
-and hands back outputs; tuning is kept as device tensors (integer bin
-plus fractional-bin ramp), so a retune changes no shape.
+and streams blocks through the step.  The host slices input blocks, hands
+back outputs and runs the AFC (``control.WeakSignalControl``, one read of
+the fft2 power spectrum per step when the AFC is on); tuning is kept as
+device tensors (integer bin plus fractional-bin ramp, per frame once the
+AFC tracks), so a retune changes no shape.
 
 Not ported yet, and refused with NotImplementedError: the audio
-resampler (``audio_out_rate``, ROADMAP queue 1 item 13), the AFC and spur
-controllers, ``Transport``, watchdog/monitor and user hooks (ROADMAP
-queue 1 item 12), and every configuration that
+resampler (``audio_out_rate``) and the spur manager (ROADMAP queue 1
+item 13), ``Transport``, watchdog/monitor and user hooks (ROADMAP queue 1
+item 12), and every configuration that
 :func:`..pipeline.chain.check_supported` refuses.
 """
 
@@ -18,11 +20,12 @@ import numpy as np
 import torch
 
 from linrad_tpu.geometry import Geometry, derive_geometry
-from linrad_tpu.params import RxParams
+from linrad_tpu.params import Demod, RxParams
 
 from ..ops.blanker import BlankerTables
 from .chain import (RxOutputs, RxState, RxTables, check_supported,
                     make_rx_step)
+from .control import WeakSignalControl
 
 _Q12 = "ROADMAP queue 1 item 12"
 
@@ -53,7 +56,13 @@ class Receiver:
         self.geo: Geometry = derive_geometry(params)
         self.tables = RxTables.create(self.geo, params, self.device,
                                       calibration)
-        self.state = RxState.create(self.geo, self.device)
+        ac = None
+        if params.demod == Demod.COHERENT and params.coherent_mode == 1:
+            # signal ear + carrier ear (bg_coherent 1, mix2.c:1843)
+            ac = 2 * (1 if params.pol_adapt_enable else self.geo.channels)
+        self.state = RxState.create(self.geo, self.device,
+                                    pol=params.pol_adapt_enable,
+                                    audio_channels=ac)
         self.blanker_pulsewidth = 2
         if self.geo.second_fft_enable:
             _, self.blanker_pulsewidth = BlankerTables.create(self.geo,
@@ -65,6 +74,12 @@ class Receiver:
                                      device=self.device)
         self._tune_frac = torch.zeros((), dtype=torch.float32,
                                       device=self.device)
+        self._tune_slope = None  # per-frame drift once the AFC locks
+        self.control = WeakSignalControl(self.geo, params, self.device)
+
+    @property
+    def afc(self):
+        return self.control.afc
 
     def add_hook(self, event: str, fn) -> None:
         raise NotImplementedError(f"user hooks are not ported; see {_Q12}")
@@ -81,6 +96,8 @@ class Receiver:
                                        device=self.device)
         self._tune_bin = torch.tensor(bin_idx % n, dtype=torch.int64,
                                       device=self.device)
+        self._tune_slope = None
+        self.control.on_tune(freq_hz)
 
     @property
     def tuned_hz(self) -> float:
@@ -104,7 +121,11 @@ class Receiver:
             raise ValueError(f"Receiver.process_block: block "
                              f"{tuple(block.shape)}, expected {expect}")
         self.state, out = self._step(self.tables, self.state, block,
-                                     self._tune_bin, self._tune_frac)
+                                     self._tune_bin, self._tune_frac,
+                                     self._tune_slope)
+        self._tune_bin, self._tune_frac, self._tune_slope = \
+            self.control.update(out, self._tune_bin, self._tune_frac,
+                                self._tune_slope)
         return out
 
     def run(self, iq: np.ndarray, *, transport=None, pace: bool = False,

@@ -173,21 +173,26 @@ def test_cuda_device_requires_cuda():
 
 REFUSED_PARAMS = {
     "real-input": dict(input_mode=InputMode.REAL),
-    "two-channel": dict(rx_rf_channels=2),
-    "demod-am": dict(demod=Demod.AM),
-    "demod-fm": dict(demod=Demod.FM),
-    "demod-coherent": dict(demod=Demod.COHERENT),
-    "demod-none": dict(demod=Demod.NONE),
     "mixer-mode-2": dict(mixer_mode=2),
     "squelch": dict(squelch_enable=True),
     "expander": dict(expander_exponent=2.0),
     "blanker-rounds": dict(blanker_rounds=2),
     "mxu": dict(fft1_variant="mxu"),
     "mxu-bf16": dict(fft1_variant="mxu_bf16"),
-    "afc": dict(afc_enable=True),
     "spur": dict(spur_enable=True),
-    "pol-adapt": dict(pol_adapt_enable=True),
     "shards": dict(shards=2),
+}
+
+# refused before the EME path was ported; tests/test_torch_eme.py holds
+# them against JAX
+PORTED_PARAMS = {
+    "two-channel": dict(rx_rf_channels=2),
+    "demod-am": dict(demod=Demod.AM),
+    "demod-fm": dict(demod=Demod.FM),
+    "demod-coherent": dict(demod=Demod.COHERENT),
+    "demod-none": dict(demod=Demod.NONE),
+    "afc": dict(afc_enable=True),
+    "pol-adapt": dict(rx_rf_channels=2, pol_adapt_enable=True),
 }
 
 
@@ -200,9 +205,45 @@ def test_refused_configuration(name):
         make_rx_step(None, p)
 
 
+@pytest.mark.parametrize("name", list(PORTED_PARAMS))
+def test_ported_configuration(name):
+    """A tiny Receiver builds and runs 5 steps (the AFC acquires after
+    4) under each setting the port used to refuse."""
+    p = dataclasses.replace(_TINY, fft1_variant="xla", **PORTED_PARAMS[name])
+    rx = Receiver(p, device="cpu")
+    rx.tune(TUNE_HZ)
+    iq = np.repeat(_input(rx.geo)[: 5 * rx.geo.samples_per_step],
+                   rx.geo.channels, axis=1)
+    outs = list(rx.run(iq))
+    audio_c = 1 if p.pol_adapt_enable else rx.geo.channels
+    for out in outs:
+        assert out.audio.shape == (rx.geo.baseband_samples_per_step, audio_c)
+        assert torch.isfinite(out.audio).all()
+    assert float(torch.cat([o.audio for o in outs]).abs().max()) > 0
+    assert (rx.afc is not None) == p.afc_enable
+    if p.afc_enable:
+        assert rx.control.host_reads == 5
+
+
+def test_tune_slope_step():
+    """The step takes tune_slope: a zero slope gives the plain
+    fractional tuning bit for bit, a non-zero one changes the audio."""
+    p = CONFIGS["xla"]
+    rx = Receiver(p, device="cpu")
+    rx.tune(TUNE_HZ)
+    block = torch.from_numpy(_input(rx.geo)[: rx.geo.samples_per_step])
+    step = make_rx_step(rx.geo, p, rx.blanker_pulsewidth, True)
+    args = (rx.tables, rx.state, block, rx._tune_bin, rx._tune_frac)
+    _s, plain = step(*args)
+    _s, zero = step(*args, torch.zeros(()))
+    _s, sloped = step(*args, torch.full((rx.geo.fftx_frames_per_step,), 0.3))
+    assert torch.equal(plain.audio, zero.audio)
+    assert not torch.equal(plain.audio, sloped.audio)
+    assert torch.isfinite(sloped.audio).all()
+
+
 @pytest.mark.parametrize("name", ["audio_out_rate", "iq_corr", "transport",
-                                  "pace", "watchdog", "monitor", "hook",
-                                  "tune_slope"])
+                                  "pace", "watchdog", "monitor", "hook"])
 def test_refused_host_feature(name):
     p = CONFIGS["xla"]
     if name == "audio_out_rate":
@@ -219,11 +260,6 @@ def test_refused_host_feature(name):
     if name == "hook":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             rx.add_hook("block", lambda *a: None)
-    elif name == "tune_slope":
-        step = make_rx_step(rx.geo, p, rx.blanker_pulsewidth, True)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            step(rx.tables, rx.state, torch.from_numpy(iq), rx._tune_bin,
-                 rx._tune_frac, torch.zeros(()))
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             next(rx.run(iq, **{name: object()}))
