@@ -9,9 +9,19 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build    build the fused fft1 kernel from linrad_tpu_torch/csrc/ with
             nvcc (sm_90a) and print the build seconds.
 3. kernel   fused_fft1 (kernel) against fused_fft1_reference (plain
-            PyTorch) on the card at four shapes, the flagship's among
-            them; max_rel <= 1e-5 for spectrum and power sum; CUDA-event
-            times for both.
+            PyTorch) on the card at eight shapes, the flagship's and the
+            EME path's among them, and three that reach the kernel's
+            other ways (several frames a block with a ragged end, more
+            than two channels); max_rel <= 1e-5 for spectrum and power
+            sum; two runs on the same input give the same bits.  Times per
+            shape: eager calls between CUDA events (ms, plain_ms: the
+            host's enqueue cost included), and device-only time of the
+            same calls captured into a CUDA graph and replayed
+            (device_ms, plain_device_ms), beside the bound from the bytes
+            the function must move (bound_ms), torch.fft.fft alone timed
+            the same way (library_ms: the transform without window,
+            calibration or power; a yardstick the port never calls) and
+            one empty kernel launch (launch_floor_ms).
 4. main     the flagship receive step (96 kHz IQ, 65,536 samples per
             step, fft1 2048 with the kernel) through Receiver for 8 steps
             of a weak keyed CW tone, Gaussian noise, impulse noise and a
@@ -37,7 +47,8 @@ Phases, in order; any failure raises and the script exits non-zero:
             per-frame tuning, in turns.
 
 It prints a JSON line describing every kernel of the paths (launches
-summed over the flagship and EME runs), then, as the last line,
+summed over the flagship and EME runs; times at the flagship's shape, and
+per shape under "by_shape"), then, as the last line,
 {"ok": true, "device": {...}}.
 """
 
@@ -53,9 +64,15 @@ import torch
 
 STEPS = 8
 KERNEL_SHAPES = [(3, 128, 1), (40, 512, 2), (64, 2048, 1), (2048, 2048, 1),
-                 (64, 4096, 2)]
+                 (64, 4096, 2),
+                 # the kernel's other ways: three frames a block with a
+                 # ragged end, channels in pairs and singly along grid y
+                 (1100, 2048, 1), (9, 1024, 4), (5, 256, 3)]
 MAIN_SHAPE = (64, 2048, 1)
 KERNEL_TOL = 1e-5
+# published peaks of one H100 SXM at its full power limit of 700 W
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_OPS_PER_S = 67e12
 # pallas (kernel) vs xla (torch.fft) receivers on the card
 CHAIN_TOL = {"audio": 1e-4, "fft2_power": 1e-5, "liminfo": 1e-5}
 CHAIN_TOL_OTHER = 1e-4
@@ -82,17 +99,6 @@ def max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
     b = b.detach().to(wide)
     scale = max(a.abs().max().item(), b.abs().max().item(), 1e-30)
     return (a - b).abs().max().item() / scale
-
-
-def cuda_ms(fn, reps: int) -> float:
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def phase_device() -> dict:
@@ -123,14 +129,21 @@ def phase_build() -> None:
     print(f"build: {info['path']} in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {info['build_seconds']:.2f} s)")
     for line in info["log"].splitlines():
-        if "registers" in line or "smem" in line or "error" in line:
+        if any(w in line for w in ("registers", "smem", "spill", "error")):
             print(f"  ptxas: {line.strip()}")
 
 
 def phase_kernel(dev: dict) -> dict:
+    from linrad_tpu_torch.ops import fused_fft1 as ff
     from linrad_tpu_torch.ops.fused_fft1 import (fused_fft1,
                                                  fused_fft1_reference)
+    from linrad_tpu_torch.utils.timing import cuda_ms, graph_ms
     before = fused_fft1.launches
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    floor = graph_ms(lambda: ff.empty_launch(cuda), 50, 20)
+    print(f"kernel launch floor: one empty kernel {floor:.5f} ms "
+          f"(device-only, CUDA graph) [{dev['smi']}]")
     report = {}
     for b, n, c in KERNEL_SHAPES:
         rng = np.random.default_rng(7)
@@ -142,31 +155,72 @@ def phase_kernel(dev: dict) -> dict:
         fc = torch.from_numpy(
             ((rng.normal(size=(n, c)) + 1j * rng.normal(size=(n, c))) * 0.1
              ).astype(np.complex64)).cuda()
-        spec_k, pow_k = fused_fft1(frames, window, fc)
-        spec_r, pow_r = fused_fft1_reference(frames, window, fc)
+
+        def kernel():
+            return fused_fft1(frames, window, fc)
+
+        def plain():
+            return fused_fft1_reference(frames, window, fc)
+
+        def library():
+            return torch.fft.fft(frames, dim=1)
+
+        spec_k, pow_k = kernel()
+        spec_r, pow_r = plain()
+        spec_2, pow_2 = kernel()
         torch.cuda.synchronize()
         rel_s = max_rel(spec_k, spec_r)
         rel_p = max_rel(pow_k, pow_r)
         abs_err = max((spec_k - spec_r).abs().max().item(),
                       (pow_k - pow_r).abs().max().item())
-        reps = 50 if b * n <= 1 << 17 else 10
-        for _ in range(3):
-            fused_fft1(frames, window, fc)
-            fused_fft1_reference(frames, window, fc)
-        plain = cuda_ms(lambda: fused_fft1_reference(frames, window, fc), reps)
-        kern = cuda_ms(lambda: fused_fft1(frames, window, fc), reps)
-        kern = 0.5 * (kern + cuda_ms(lambda: fused_fft1(frames, window, fc),
-                                     reps))
-        plain = 0.5 * (plain + cuda_ms(
-            lambda: fused_fft1_reference(frames, window, fc), reps))
+        same_bits = (torch.equal(torch.view_as_real(spec_k),
+                                 torch.view_as_real(spec_2))
+                     and torch.equal(pow_k, pow_2))
+        plan = ff.launch_plan(b, n, c, sms)
         print(f"kernel fused_fft1 {(b, n, c)}: spec max_rel {rel_s:.3e}, "
               f"power_sum max_rel {rel_p:.3e}, max_abs_err {abs_err:.3e}; "
-              f"kernel {kern:.4f} ms, plain {plain:.4f} ms [{dev['smi']}]")
+              f"two runs bit-identical: {same_bits}; plan: grid "
+              f"{plan['grid']} x {plan['threads']} threads, "
+              f"{plan['frames_per_block']} frame(s) per block, "
+              f"{plan['smem_bytes']} B shared, {plan['clusters']} scratch "
+              f"row(s), radices {plan['radices']}")
         if not (rel_s <= KERNEL_TOL and rel_p <= KERNEL_TOL):
             raise AssertionError(f"fused_fft1 {(b, n, c)} disagrees with "
                                  f"its plain version: {rel_s}, {rel_p}")
-        report[(b, n, c)] = {"max_abs_err": abs_err, "ms": kern,
-                             "plain_ms": plain}
+        if not same_bits:
+            raise AssertionError(f"fused_fft1 {(b, n, c)}: two runs on the "
+                                 f"same input differ")
+        reps = 50 if b * n <= 1 << 17 else 10
+        for _ in range(3):
+            kernel()
+            plain()
+        plain_ms = cuda_ms(plain, reps)
+        kern_ms = cuda_ms(kernel, reps)
+        kern_ms = 0.5 * (kern_ms + cuda_ms(kernel, reps))
+        plain_ms = 0.5 * (plain_ms + cuda_ms(plain, reps))
+        replays = 20 if b * n <= 1 << 17 else 5
+        lib_dev = graph_ms(library, reps, replays)
+        kern_dev = graph_ms(kernel, reps, replays)
+        plain_dev = graph_ms(plain, reps, replays)
+        kern_dev = 0.5 * (kern_dev + graph_ms(kernel, reps, replays))
+        lib_dev = 0.5 * (lib_dev + graph_ms(library, reps, replays))
+        by_bytes = 1e3 * ff.necessary_bytes(b, n, c) / PEAK_BYTES_PER_S
+        by_ops = 1e3 * ff.operations(b, n, c) / PEAK_FP32_OPS_PER_S
+        bound = max(by_bytes, by_ops)
+        print(f"kernel fused_fft1 {(b, n, c)} times: device_ms "
+              f"{kern_dev:.5f}, eager ms {kern_ms:.4f}, bound_ms "
+              f"{bound:.5f} ({ff.necessary_bytes(b, n, c)} bytes; by "
+              f"operations {by_ops:.5f}), share of bound "
+              f"{bound / kern_dev:.3f}, library_ms (torch.fft.fft alone) "
+              f"{lib_dev:.5f}, plain eager ms {plain_ms:.4f}, plain "
+              f"device_ms {plain_dev:.5f}, launch_floor_ms {floor:.5f} "
+              f"[{dev['smi']}]")
+        report[(b, n, c)] = {
+            "max_abs_err": abs_err, "ms": kern_ms, "plain_ms": plain_ms,
+            "device_ms": kern_dev, "plain_device_ms": plain_dev,
+            "bound_ms": bound,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": lib_dev, "launch_floor_ms": floor}
     if fused_fft1.launches <= before:
         raise AssertionError("fused_fft1 launch counter did not rise")
     return report
@@ -558,13 +612,13 @@ def main() -> None:
     eme_launches, eme_rx, eme_iq = phase_eme()
     phase_eme_timing(dev, eme_rx, eme_iq)
     launches += eme_launches
-    k = kern[MAIN_SHAPE]
     print(json.dumps({"kernels": [{
         "name": "fused_fft1", "route": "cuda",
         "source": "linrad_tpu_torch/csrc/fused_fft1.cu",
         "replaces": "linrad_tpu/ops/pallas_fft.py:59",
-        "launches": launches, "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"]}]}))
+        "launches": launches, **kern[MAIN_SHAPE],
+        "by_shape": {"x".join(map(str, shape)): v
+                     for shape, v in kern.items()}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["name"], "count": dev["count"]}}))
 

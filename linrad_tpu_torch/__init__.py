@@ -1,9 +1,9 @@
 """linrad_tpu_torch — the PyTorch/CUDA port of linrad_tpu.
 
-The JAX package ``linrad_tpu`` stays the reference.  This package takes
-the same ``RxParams``/``Geometry`` (shared from ``linrad_tpu``'s jax-free
-configuration modules, not copied) and returns the same ``RxOutputs``
-fields, in PyTorch, with the TPU's Pallas kernel rewritten as a CUDA
+The JAX package ``linrad_tpu`` stays the reference.  This package keeps
+its own copies of the configuration modules (``params``, ``geometry``,
+``ops.windows``, ``utils.llsq``, ``weak.afc``), imports nothing of
+``linrad_tpu``, and returns the same ``RxOutputs`` fields, in PyTorch, with the TPU's Pallas kernel rewritten as a CUDA
 kernel for Hopper (``csrc/fused_fft1.cu``).
 
 Ported so far: the flagship receive step, ``pipeline.chain.make_rx_step``
@@ -13,11 +13,13 @@ polarization, the SSB, AM, FM and coherent detectors, and the AFC with
 drift tracking (``pipeline.control``).  Configurations off those slices
 raise NotImplementedError naming the ROADMAP entry that ports them.
 
-This package never imports jax.
+This package never imports jax or ``linrad_tpu``;
+``convert.params_from_jax`` turns the JAX package's ``RxParams`` into
+this package's.
 """
 
-from linrad_tpu import (Demod, Geometry, InputMode, RxMode, RxParams,
-                        derive_geometry, preset)
+from .geometry import Geometry, derive_geometry
+from .params import Demod, InputMode, RxMode, RxParams, preset
 
 __all__ = ["Demod", "Geometry", "InputMode", "RxMode", "RxParams",
            "derive_geometry", "flagship_params", "preset"]

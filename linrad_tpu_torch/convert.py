@@ -1,4 +1,9 @@
-"""Tables and state carried between linrad_tpu and this port.
+"""Parameters, tables and state carried between linrad_tpu and this port.
+
+:func:`params_from_jax` turns the JAX package's ``RxParams`` (or its
+``dataclasses.asdict``) into this package's ``RxParams``, field by field,
+so a parity test builds one configuration and hands each package its own
+type.
 
 A table or state tree travels as a flat dict of numpy arrays keyed by
 dataclass field path ("fft1.window", "mix1.phase_idx", "timf2_syn", ...).
@@ -18,7 +23,26 @@ import typing
 import numpy as np
 import torch
 
+from .params import Demod, InputMode, RxParams
 from .pipeline.chain import RxState, RxTables
+
+
+def params_from_jax(p) -> RxParams:
+    """The JAX package's ``RxParams`` -> this package's ``RxParams``.
+
+    ``p`` is the dataclass instance or its ``dataclasses.asdict`` dict;
+    enums travel by value.  The two classes must have the same fields: a
+    field on one side only raises (the copies have drifted apart)."""
+    d = dict(p) if isinstance(p, dict) else dataclasses.asdict(p)
+    names = {f.name for f in dataclasses.fields(RxParams)}
+    if set(d) != names:
+        raise ValueError(f"params_from_jax: fields differ: "
+                         f"{sorted(set(d) ^ names)}")
+    d["input_mode"] = InputMode(int(d["input_mode"]))
+    d["demod"] = Demod(int(d["demod"]))
+    d["notches"] = tuple(tuple(n) for n in d["notches"])
+    d["filter_shape"] = tuple(tuple(n) for n in d["filter_shape"])
+    return RxParams(**d)
 
 
 def flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:

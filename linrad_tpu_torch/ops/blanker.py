@@ -21,8 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from linrad_tpu.geometry import Geometry
-
+from ..geometry import Geometry
 from ..utils.segments import segment_max
 
 MAX_REFPULSES = 256  # fractional-shift bank depth (blnkdef.h:13)

@@ -14,12 +14,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from linrad_tpu.geometry import Geometry
-from linrad_tpu.ops.windows import make_window
-
+from ..geometry import Geometry
 from . import fft as fftlib
 from .framing import frame_stream
 from .fused_fft1 import fused_fft1
+from .windows import make_window
 
 
 @dataclass(frozen=True)

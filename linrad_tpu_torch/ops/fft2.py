@@ -10,10 +10,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from linrad_tpu.geometry import Geometry
-from linrad_tpu.ops.windows import make_window
-
+from ..geometry import Geometry
 from .framing import frame_stream
+from .windows import make_window
 
 
 @dataclass(frozen=True)

@@ -18,10 +18,9 @@ import numpy as np
 import torch
 from scipy.special import erfc
 
-from linrad_tpu.geometry import Geometry
-from linrad_tpu.ops.windows import synthesis_weights
-
+from ..geometry import Geometry
 from .framing import overlap_add
+from .windows import synthesis_weights
 
 
 def fqwin_weight(bin_offset: np.ndarray, mix1_size: int) -> np.ndarray:

@@ -16,12 +16,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from linrad_tpu.geometry import Geometry
-from linrad_tpu.ops.windows import synthesis_weights
-from linrad_tpu.params import RxParams
-
+from ..geometry import Geometry
+from ..params import RxParams
 from .framing import overlap_add
 from .mix1 import _signed_bins, fqwin_weight, signed_bins
+from .windows import synthesis_weights
 
 
 def _filter_response(freq: np.ndarray, geo: Geometry, low_hz: float,

@@ -18,10 +18,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from linrad_tpu.geometry import Geometry
-from linrad_tpu.ops.windows import make_window
-
+from ..geometry import Geometry
 from ..utils.segments import segment_max, segment_min, segment_sum
+from .windows import make_window
 
 RELEASE_FACTOR = 1.15   # sellim.c:35
 SFAC = 2.0              # sellim.c:36

@@ -13,10 +13,9 @@ from dataclasses import dataclass
 
 import torch
 
-from linrad_tpu.geometry import Geometry
-from linrad_tpu.ops.windows import synthesis_weights
-
+from ..geometry import Geometry
 from .framing import overlap_add
+from .windows import synthesis_weights
 
 
 @dataclass

@@ -24,9 +24,7 @@ from dataclasses import dataclass
 
 import torch
 
-from linrad_tpu.geometry import Geometry
-from linrad_tpu.params import Demod, InputMode, RxParams
-
+from ..geometry import Geometry
 from ..ops import agc as agc_ops
 from ..ops import blanker as blanker_ops
 from ..ops import demod as demod_ops
@@ -41,6 +39,7 @@ from ..ops.mix1 import Mix1State, Mix1Tables, mix1_step
 from ..ops.mix2 import Mix2State, Mix2Tables, mix2_step
 from ..ops.sellim import SellimState
 from ..ops.timf2 import Timf2State, make_timf2_syn, timf2_step
+from ..params import Demod, InputMode, RxParams
 from ..weak.pol import PolState, update_polarization
 
 

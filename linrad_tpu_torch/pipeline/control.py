@@ -7,8 +7,8 @@ counted in ``host_reads``), acquires the signal from 4 steps of spectra,
 then tracks it, and steers the next step's tuning.  With
 ``afc_coherent`` the tuning becomes a constant base bin plus per-frame
 (frac, slope) ramps (``AFCTracker.frame_tuning``), otherwise per-frame
-integer bins (``frame_bins``).  ``AFCTracker`` is the JAX package's own
-numpy class, shared by import; it imports no jax.
+integer bins (``frame_bins``).  ``AFCTracker`` is ``weak.afc``'s numpy
+class, this package's own copy of the JAX package's.
 
 The spur half (``spur_enable``) is not ported: ROADMAP queue 1 item 13.
 """
@@ -18,9 +18,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from linrad_tpu.geometry import Geometry
-from linrad_tpu.params import RxParams
-from linrad_tpu.weak.afc import AFCConfig, AFCTracker
+from ..geometry import Geometry
+from ..params import RxParams
+from ..weak.afc import AFCConfig, AFCTracker
 
 
 class WeakSignalControl:

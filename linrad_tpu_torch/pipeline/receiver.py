@@ -19,10 +19,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from linrad_tpu.geometry import Geometry, derive_geometry
-from linrad_tpu.params import Demod, RxParams
-
+from ..geometry import Geometry, derive_geometry
 from ..ops.blanker import BlankerTables
+from ..params import Demod, RxParams
 from .chain import (RxOutputs, RxState, RxTables, check_supported,
                     make_rx_step)
 from .control import WeakSignalControl

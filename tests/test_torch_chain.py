@@ -23,9 +23,8 @@ import pytest
 import torch
 
 from __graft_entry__ import _flagship_params
-from linrad_tpu import Demod, InputMode
 from linrad_tpu.pipeline.receiver import Receiver as JaxReceiver
-from linrad_tpu_torch import convert
+from linrad_tpu_torch import Demod, InputMode, convert
 from linrad_tpu_torch.pipeline.chain import make_rx_step
 from linrad_tpu_torch.pipeline.receiver import Receiver
 
@@ -48,6 +47,9 @@ CONFIGS = {
     "no-fft2": dataclasses.replace(_TINY, second_fft_enable=False,
                                    blanker_enable=False),
 }
+# the same configurations as the port's own RxParams
+T_CONFIGS = {k: convert.params_from_jax(v) for k, v in CONFIGS.items()}
+_T_TINY = convert.params_from_jax(_TINY)
 
 
 def _max_rel(a, b) -> float:
@@ -80,7 +82,7 @@ def runs(request):
     JAX step is jitted once here."""
     p = CONFIGS[request.param]
     jrx = JaxReceiver(p)
-    trx = Receiver(p, device="cpu")
+    trx = Receiver(T_CONFIGS[request.param], device="cpu")
     trx.tables = convert.tables_from_numpy(convert.flatten(jrx.tables),
                                            "cpu")
     trx.state = convert.state_from_numpy(convert.flatten(jrx.state), "cpu")
@@ -142,7 +144,7 @@ def test_final_state(runs):
 
 def test_make_rx_step_matches_receiver():
     """make_rx_step called directly gives the Receiver's first step."""
-    p = CONFIGS["pallas"]
+    p = T_CONFIGS["pallas"]
     rx = Receiver(p, device="cpu")
     rx.tune(TUNE_HZ)
     block = _input(rx.geo)[: rx.geo.samples_per_step]
@@ -158,7 +160,7 @@ def test_make_rx_step_matches_receiver():
 
 
 def test_receiver_rejects_bad_block():
-    rx = Receiver(CONFIGS["xla"], device="cpu")
+    rx = Receiver(T_CONFIGS["xla"], device="cpu")
     with pytest.raises(ValueError, match="expected"):
         rx.process_block(np.zeros((rx.geo.samples_per_step - 1, 1),
                                   np.complex64))
@@ -168,7 +170,7 @@ def test_cuda_device_requires_cuda():
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA")
     with pytest.raises(RuntimeError, match="cuda"):
-        Receiver(CONFIGS["pallas"], device="cuda")
+        Receiver(T_CONFIGS["pallas"], device="cuda")
 
 
 REFUSED_PARAMS = {
@@ -198,7 +200,7 @@ PORTED_PARAMS = {
 
 @pytest.mark.parametrize("name", list(REFUSED_PARAMS))
 def test_refused_configuration(name):
-    p = dataclasses.replace(_TINY, **REFUSED_PARAMS[name])
+    p = dataclasses.replace(_T_TINY, **REFUSED_PARAMS[name])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Receiver(p, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -209,7 +211,8 @@ def test_refused_configuration(name):
 def test_ported_configuration(name):
     """A tiny Receiver builds and runs 5 steps (the AFC acquires after
     4) under each setting the port used to refuse."""
-    p = dataclasses.replace(_TINY, fft1_variant="xla", **PORTED_PARAMS[name])
+    p = dataclasses.replace(_T_TINY, fft1_variant="xla",
+                            **PORTED_PARAMS[name])
     rx = Receiver(p, device="cpu")
     rx.tune(TUNE_HZ)
     iq = np.repeat(_input(rx.geo)[: 5 * rx.geo.samples_per_step],
@@ -228,7 +231,7 @@ def test_ported_configuration(name):
 def test_tune_slope_step():
     """The step takes tune_slope: a zero slope gives the plain
     fractional tuning bit for bit, a non-zero one changes the audio."""
-    p = CONFIGS["xla"]
+    p = T_CONFIGS["xla"]
     rx = Receiver(p, device="cpu")
     rx.tune(TUNE_HZ)
     block = torch.from_numpy(_input(rx.geo)[: rx.geo.samples_per_step])
@@ -245,7 +248,7 @@ def test_tune_slope_step():
 @pytest.mark.parametrize("name", ["audio_out_rate", "iq_corr", "transport",
                                   "pace", "watchdog", "monitor", "hook"])
 def test_refused_host_feature(name):
-    p = CONFIGS["xla"]
+    p = T_CONFIGS["xla"]
     if name == "audio_out_rate":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Receiver(p, device="cpu", audio_out_rate=8000.0)

@@ -34,7 +34,9 @@ from linrad_tpu.ops import mix2 as jmix2
 from linrad_tpu.params import RxParams
 from linrad_tpu.pipeline.receiver import Receiver as JaxReceiver
 from linrad_tpu.weak import pol as jpol
+from linrad_tpu_torch import RxParams as TRxParams
 from linrad_tpu_torch import convert
+from linrad_tpu_torch import derive_geometry as t_derive_geometry
 from linrad_tpu_torch.ops import demod as tdemod
 from linrad_tpu_torch.ops import fft1 as tfft1
 from linrad_tpu_torch.ops import mix1 as tmix1
@@ -71,6 +73,8 @@ CONFIGS = {
     "fm": preset(RxMode.FM, fm_deemphasis_us=75.0, **TINY),
     "am": preset(RxMode.AM, **TINY),
 }
+# the same configurations as the port's own RxParams
+T_CONFIGS = {k: convert.params_from_jax(v) for k, v in CONFIGS.items()}
 
 
 def _max_rel(a, b) -> float:
@@ -155,7 +159,7 @@ def runs(request):
     """Both receivers over the same input from the same tables/state."""
     p = CONFIGS[request.param]
     jrx = JaxReceiver(p)
-    trx = Receiver(p, device="cpu")
+    trx = Receiver(T_CONFIGS[request.param], device="cpu")
     trx.tables = convert.tables_from_numpy(convert.flatten(jrx.tables),
                                            "cpu")
     trx.state = convert.state_from_numpy(convert.flatten(jrx.state), "cpu")
@@ -275,7 +279,7 @@ def test_retune_resets_afc(runs):
 def test_direct_step_with_per_frame_tuning():
     """make_rx_step takes per-frame (bins, frac, slope) tensors straight
     and gives what the Receiver gives for the same tuning."""
-    p = CONFIGS["coherent2-pallas"]
+    p = T_CONFIGS["coherent2-pallas"]
     rx = Receiver(p, device="cpu")
     geo = rx.geo
     n = geo.fftx_frames_per_step
@@ -295,9 +299,9 @@ def test_direct_step_with_per_frame_tuning():
 
 
 def test_spur_half_refused():
-    p = dataclasses.replace(CONFIGS["coherent2-pallas"], spur_enable=True)
+    p = dataclasses.replace(T_CONFIGS["coherent2-pallas"], spur_enable=True)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
-        WeakSignalControl(derive_geometry(p), p, "cpu")
+        WeakSignalControl(t_derive_geometry(p), p, "cpu")
 
 
 # ---- modules against JAX ---------------------------------------------
@@ -380,26 +384,26 @@ def test_update_polarization(case):
 
 
 def test_mix2_with_carrier():
-    geo = derive_geometry(CONFIGS["coherent2-pallas"])
-    p = CONFIGS["coherent2-pallas"]
+    p, tp = CONFIGS["coherent2-pallas"], T_CONFIGS["coherent2-pallas"]
+    geo, tgeo = derive_geometry(p), t_derive_geometry(tp)
     rng = np.random.default_rng(25)
     j_tab = jmix2.Mix2Tables.create(geo, p)
-    t_tab = tmix2.Mix2Tables.create(geo, p, "cpu")
+    t_tab = tmix2.Mix2Tables.create(tgeo, tp, "cpu")
     np.testing.assert_array_equal(t_tab.carr_filt.numpy(),
                                   np.asarray(j_tab.carr_filt))
-    j_st, t_st = jmix2.Mix2State.create(geo), tmix2.Mix2State.create(geo,
+    j_st, t_st = jmix2.Mix2State.create(geo), tmix2.Mix2State.create(tgeo,
                                                                      "cpu")
     for _ in range(3):
         spec = _cnoise(rng, (geo.fft3_frames_per_step, geo.fft3_size, 2))
         j_st, jb, jc = jmix2.mix2_step(geo, j_tab, j_st, jnp.asarray(spec),
                                        with_carrier=True)
-        t_st, tb, tc = tmix2.mix2_step(geo, t_tab, t_st, _t(spec),
+        t_st, tb, tc = tmix2.mix2_step(tgeo, t_tab, t_st, _t(spec),
                                        with_carrier=True)
         assert _max_rel(tb.numpy(), jb) <= FP32
         assert _max_rel(tc.numpy(), jc) <= FP32
         assert _max_rel(t_st.carr_ola_carry.numpy(),
                         j_st.carr_ola_carry) <= FP32
-    _s, _b, none = tmix2.mix2_step(geo, t_tab, t_st, _t(spec))
+    _s, _b, none = tmix2.mix2_step(tgeo, t_tab, t_st, _t(spec))
     assert none is None
 
 
@@ -408,11 +412,12 @@ def test_mix1_with_slope(per_frame):
     """mix1_step with tune_slope (and frac_ramp under it), three steps so
     the fractional phase carries."""
     geo = derive_geometry(CONFIGS["coherent2-pallas"])
+    tgeo = t_derive_geometry(T_CONFIGS["coherent2-pallas"])
     n = geo.fftx_frames_per_step
     rng = np.random.default_rng(26)
     j_tab, t_tab = jmix1.Mix1Tables.create(geo), tmix1.Mix1Tables.create(
-        geo, "cpu")
-    j_st, t_st = jmix1.Mix1State.create(geo), tmix1.Mix1State.create(geo,
+        tgeo, "cpu")
+    j_st, t_st = jmix1.Mix1State.create(geo), tmix1.Mix1State.create(tgeo,
                                                                      "cpu")
     if per_frame:
         frac = np.linspace(-0.45, 0.3, n).astype(np.float32)
@@ -427,7 +432,7 @@ def test_mix1_with_slope(per_frame):
                                    jnp.asarray(bins),
                                    tune_frac=jnp.asarray(frac),
                                    tune_slope=jnp.asarray(slope))
-        t_st, ty = tmix1.mix1_step(geo, t_tab, t_st, _t(spec),
+        t_st, ty = tmix1.mix1_step(tgeo, t_tab, t_st, _t(spec),
                                    _t(bins), tune_frac=_t(frac),
                                    tune_slope=_t(slope))
         assert _max_rel(ty.numpy(), jy) <= FP32
@@ -435,13 +440,13 @@ def test_mix1_with_slope(per_frame):
         assert abs(float(t_st.frac_phase) - float(j_st.frac_phase)) <= 1e-6
     jr, jp = jmix1.frac_ramp(geo, jnp.float32(0.3), jnp.asarray(frac),
                              jnp.asarray(slope), n)
-    tr, tp = tmix1.frac_ramp(geo, torch.tensor(0.3), _t(frac), _t(slope), n)
+    tr, tp = tmix1.frac_ramp(tgeo, torch.tensor(0.3), _t(frac), _t(slope), n)
     assert _max_rel(tr.numpy(), jr) <= FP32
     assert abs(float(tp) - float(jp)) <= 1e-6
 
 
 def test_slope_requires_frac():
-    geo = derive_geometry(CONFIGS["coherent2-pallas"])
+    geo = t_derive_geometry(T_CONFIGS["coherent2-pallas"])
     with pytest.raises(ValueError, match="tune_frac"):
         tmix1.mix1_step(geo, None, None,
                         torch.zeros((geo.fftx_frames_per_step,
@@ -456,9 +461,9 @@ FS = 96_000.0
 
 
 def _mix_drifting(use_slope: bool):
-    p = RxParams(fft1_n_override=10, target_fft1_frames_per_step=64,
-                 agc_enable=False)
-    geo = derive_geometry(p)
+    p = TRxParams(fft1_n_override=10, target_fft1_frames_per_step=64,
+                  agc_enable=False)
+    geo = t_derive_geometry(p)
     n = geo.fft1_size
     newp = geo.fft1_new_points
     nframes = geo.fft1_frames_per_step
@@ -506,7 +511,8 @@ def test_slope_removes_sawtooth_fm():
 def test_zero_slope_matches_plain_frac():
     p = RxParams(fft1_n_override=10, target_fft1_frames_per_step=16,
                  agc_enable=False)
-    geo = derive_geometry(p)
+    jgeo = derive_geometry(p)
+    geo = t_derive_geometry(convert.params_from_jax(p))
     rng = np.random.default_rng(0)
     iq = _cnoise(rng, (geo.samples_per_step, 1))
     t1, s1 = tfft1.FFT1Tables.create(geo, "cpu"), tfft1.FFT1State.create(
@@ -521,8 +527,8 @@ def test_zero_slope_matches_plain_frac():
                            tune_slope=torch.tensor(0.0))
     np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6)
     # and the JAX version on the same spectra
-    _, j = jmix1.mix1_step(geo, jmix1.Mix1Tables.create(geo),
-                           jmix1.Mix1State.create(geo),
+    _, j = jmix1.mix1_step(jgeo, jmix1.Mix1Tables.create(jgeo),
+                           jmix1.Mix1State.create(jgeo),
                            jnp.asarray(spec.numpy()), jnp.int32(128),
                            tune_frac=jnp.float32(0.3),
                            tune_slope=jnp.float32(0.0))

@@ -1,7 +1,10 @@
-"""linrad_tpu_torch never imports jax: the machine with the card has no
-JAX.  Checked in a fresh interpreter, since this test process has jax
-loaded already (tests/conftest.py)."""
+"""linrad_tpu_torch never imports jax, nor any module of the JAX package
+linrad_tpu: the machine with the card has no JAX, and the port keeps its
+own copies of the configuration modules.  Checked in a fresh interpreter,
+since this test process has jax loaded already (tests/conftest.py), and
+statically over the port's sources."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -14,6 +17,8 @@ ROOT = Path(__file__).resolve().parents[1]
 MODULES = [
     "linrad_tpu_torch",
     "linrad_tpu_torch.convert",
+    "linrad_tpu_torch.geometry",
+    "linrad_tpu_torch.params",
     "linrad_tpu_torch.ops.agc",
     "linrad_tpu_torch.ops.blanker",
     "linrad_tpu_torch.ops.demod",
@@ -27,16 +32,22 @@ MODULES = [
     "linrad_tpu_torch.ops.mix2",
     "linrad_tpu_torch.ops.sellim",
     "linrad_tpu_torch.ops.timf2",
+    "linrad_tpu_torch.ops.windows",
     "linrad_tpu_torch.pipeline.chain",
     "linrad_tpu_torch.pipeline.control",
     "linrad_tpu_torch.pipeline.receiver",
+    "linrad_tpu_torch.utils.llsq",
     "linrad_tpu_torch.utils.scanops",
     "linrad_tpu_torch.utils.segments",
+    "linrad_tpu_torch.utils.timing",
+    "linrad_tpu_torch.weak.afc",
     "linrad_tpu_torch.weak.pol",
-    # numpy modules of the JAX package that the port shares by import
-    "linrad_tpu.weak.afc",
-    "linrad_tpu.utils.llsq",
 ]
+
+# printed by the child: the loaded modules named jax, jax.*, linrad_tpu or
+# linrad_tpu.* (linrad_tpu_torch is another package and does not count)
+FOREIGN = ("print(sorted(m for m in sys.modules if m.split('.')[0] in "
+           "('jax', 'jaxlib', 'linrad_tpu')))\n")
 
 
 def _run(code: str) -> subprocess.CompletedProcess:
@@ -48,11 +59,46 @@ def _run(code: str) -> subprocess.CompletedProcess:
 
 @pytest.mark.parametrize("module", MODULES)
 def test_module_does_not_import_jax(module):
-    proc = _run(f"import sys, importlib; importlib.import_module({module!r});"
-                f"print(sorted(m for m in sys.modules if m == 'jax' "
-                f"or m.startswith('jax.')))")
+    proc = _run(f"import sys, importlib\n"
+                f"importlib.import_module({module!r})\n" + FOREIGN)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]", proc.stdout
+
+
+def test_modules_list_is_complete():
+    """Every module of the package is in MODULES."""
+    pkg = ROOT / "linrad_tpu_torch"
+    found = set()
+    for path in pkg.rglob("*.py"):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        found.add(".".join(parts))
+    subpackages = {"linrad_tpu_torch.ops", "linrad_tpu_torch.pipeline",
+                   "linrad_tpu_torch.utils", "linrad_tpu_torch.weak"}
+    assert found - subpackages == set(MODULES)
+
+
+def _imported_names(path: Path) -> list[tuple[int, str]]:
+    """(line, module) of every absolute import in a source file."""
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [(node.lineno, a.name) for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append((node.lineno, node.module or ""))
+    return names
+
+
+def test_sources_import_neither_jax_nor_the_jax_package():
+    """Static: no import statement anywhere in the port or in
+    chip_smoke.py (inside functions included) names jax or linrad_tpu."""
+    files = sorted((ROOT / "linrad_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 25
+    bad = [f"{path.relative_to(ROOT)}:{line}: {name}"
+           for path in files for line, name in _imported_names(path)
+           if name.split(".")[0] in ("jax", "jaxlib", "linrad_tpu")]
+    assert not bad, bad
 
 
 def test_cpu_receiver_step_does_not_import_jax():
@@ -66,9 +112,9 @@ def test_cpu_receiver_step_does_not_import_jax():
         "out = rx.process_block(np.zeros((rx.geo.samples_per_step, 1),"
         " np.complex64))\n"
         "assert out.audio.shape == (rx.geo.baseband_samples_per_step, 1)\n"
-        "print('jax' in sys.modules)\n")
+        + FOREIGN)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "False"
+    assert proc.stdout.strip() == "[]", proc.stdout
 
 
 def test_cpu_eme_receiver_does_not_import_jax():
@@ -76,7 +122,7 @@ def test_cpu_eme_receiver_does_not_import_jax():
     coherent detection, AFC) runs 5 steps, so the AFC acquires, jax-free."""
     proc = _run(
         "import sys, numpy as np\n"
-        "from linrad_tpu import RxMode, preset\n"
+        "from linrad_tpu_torch import RxMode, preset\n"
         "from linrad_tpu_torch.pipeline.receiver import Receiver\n"
         "p = preset(RxMode.WCW, rx_ad_speed=48_000, rx_rf_channels=2,"
         " pol_adapt_enable=True, fft1_variant='pallas', fft1_n_override=8,"
@@ -89,7 +135,8 @@ def test_cpu_eme_receiver_does_not_import_jax():
         ".astype(np.complex64)\n"
         "outs = list(rx.run(iq))\n"
         "assert len(outs) == 5 and rx.control.host_reads == 5\n"
-        "assert outs[-1].audio.shape == (rx.geo.baseband_samples_per_step, 1)\n"
-        "print('jax' in sys.modules)\n")
+        "assert outs[-1].audio.shape == "
+        "(rx.geo.baseband_samples_per_step, 1)\n"
+        + FOREIGN)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "False"
+    assert proc.stdout.strip() == "[]", proc.stdout

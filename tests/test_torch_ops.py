@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from __graft_entry__ import _flagship_params
-from linrad_tpu import RxParams, derive_geometry
+from linrad_tpu import derive_geometry
 from linrad_tpu.ops import agc as jagc
 from linrad_tpu.ops import blanker as jbl
 from linrad_tpu.ops import demod as jdemod
@@ -33,6 +33,9 @@ from linrad_tpu.ops import sellim as jsellim
 from linrad_tpu.ops import timf2 as jtimf2
 from linrad_tpu.utils import scanops as jscan
 from linrad_tpu.utils import segments as jseg
+from linrad_tpu_torch import RxParams as TRxParams
+from linrad_tpu_torch import convert
+from linrad_tpu_torch import derive_geometry as t_derive_geometry
 from linrad_tpu_torch.ops import agc as tagc
 from linrad_tpu_torch.ops import blanker as tbl
 from linrad_tpu_torch.ops import demod as tdemod
@@ -72,6 +75,11 @@ def _cnoise(rng, shape, scale=1.0):
 
 GEOS = {"tiny": derive_geometry(_flagship_params(tiny=True)),
         "flagship": derive_geometry(_flagship_params())}
+# the port's own Geometry for the same configurations
+T_GEOS = {"tiny": t_derive_geometry(convert.params_from_jax(
+              _flagship_params(tiny=True))),
+          "flagship": t_derive_geometry(convert.params_from_jax(
+              _flagship_params()))}
 
 
 # ---- framing ---------------------------------------------------------
@@ -167,10 +175,11 @@ def test_sellim(geo_name):
     and release cap all engage): liminfo sign pattern and liminfo_wait
     exact, values <= 1e-5; liminfo_gains exact on the same liminfo."""
     geo = GEOS[geo_name]
+    tgeo = T_GEOS[geo_name]
     n = geo.fft1_size
     rng = np.random.default_rng(5)
     j_st = jsellim.SellimState.create(geo)
-    t_st = tsellim.SellimState.create(geo, CPU)
+    t_st = tsellim.SellimState.create(tgeo, CPU)
     upd = jax.jit(lambda s, p, lo, hi: jsellim.update_liminfo(
         geo, s, p, 8.0, ston=30.0, sel_lo=lo, sel_hi=hi))
     strong_seen = neg_seen = False
@@ -180,7 +189,7 @@ def test_sellim(geo_name):
             p[n // 5 - 3: n // 5 + 8] = 1e3   # the strong signal leaves
         lo, hi = n // 8, n // 8 + 6
         j_st = upd(j_st, jnp.asarray(p), jnp.int32(lo), jnp.int32(hi))
-        t_st = tsellim.update_liminfo(geo, t_st, _t(p), 8.0, ston=30.0,
+        t_st = tsellim.update_liminfo(tgeo, t_st, _t(p), 8.0, ston=30.0,
                                       sel_lo=torch.tensor(lo),
                                       sel_hi=torch.tensor(hi))
         jl = np.asarray(j_st.liminfo)
@@ -215,22 +224,23 @@ def test_chain_reach(seed):
 
 def test_timf2():
     geo = GEOS["tiny"]
+    tgeo = T_GEOS["tiny"]
     rng = np.random.default_rng(6)
     n, big = geo.fft1_frames_per_step, geo.fft1_size
     lim = np.zeros(big, np.float32)
     lim[10:14] = -1.0
     lim[40:45] = 0.3
     j_st = jtimf2.Timf2State.create(geo)
-    t_st = ttimf2.Timf2State.create(geo, CPU)
+    t_st = ttimf2.Timf2State.create(tgeo, CPU)
     j_syn = jtimf2.make_timf2_syn(geo)
-    t_syn = ttimf2.make_timf2_syn(geo, CPU)
+    t_syn = ttimf2.make_timf2_syn(tgeo, CPU)
     np.testing.assert_array_equal(t_syn.numpy(), np.asarray(j_syn))
     wg, sg = jsellim.liminfo_gains(jnp.asarray(lim))
     for _ in range(2):
         spec = _cnoise(rng, (n, big, 1), 30.0)
         j_st, jw, js, jp = jtimf2.timf2_step(geo, j_syn, j_st,
                                              jnp.asarray(spec), wg, sg)
-        t_st, tw, ts, tp = ttimf2.timf2_step(geo, t_syn, t_st, _t(spec),
+        t_st, tw, ts, tp = ttimf2.timf2_step(tgeo, t_syn, t_st, _t(spec),
                                              _t(wg), _t(sg))
         for a, b in ((tw, jw), (ts, js), (tp, jp),
                      (t_st.weak_carry, j_st.weak_carry),
@@ -261,10 +271,11 @@ def _pulses(geo, rng, n_pulses, amp=300.0):
 def test_clever_blanker(block_size, geo_name, n_pulses):
     """Fitted count exact; weak' and pwr' within fp32 of JAX."""
     geo = GEOS[geo_name]
+    tgeo = T_GEOS[geo_name]
     rng = np.random.default_rng(8)
     weak, pwr, pw = _pulses(geo, rng, n_pulses)
     j_tab, _ = jbl.BlankerTables.create(geo)
-    t_tab, t_pw = tbl.BlankerTables.create(geo, CPU)
+    t_tab, t_pw = tbl.BlankerTables.create(tgeo, CPU)
     assert t_pw == pw
     max_pulses = 64 if geo_name == "flagship" else 8
     nf = np.float32(18.0)
@@ -284,6 +295,7 @@ def test_clever_blanker(block_size, geo_name, n_pulses):
 def test_stupid_blanker_and_noise_floor(seed):
     """Cleared count and the cleared samples exact; noise floor fp32."""
     geo = GEOS["tiny"]
+    tgeo = T_GEOS["tiny"]
     rng = np.random.default_rng(seed)
     weak, pwr, pw = _pulses(geo, rng, 10, amp=100.0)
     nf = np.float32(18.0)
@@ -297,7 +309,7 @@ def test_stupid_blanker_and_noise_floor(seed):
     step_s = geo.samples_per_step / geo.timf1_sampling_speed
     j_nf = jbl.update_noise_floor(jbl.BlankerState.create(geo),
                                   jnp.asarray(pwr), step_s)
-    t_nf = tbl.update_noise_floor(tbl.BlankerState.create(geo, CPU),
+    t_nf = tbl.update_noise_floor(tbl.BlankerState.create(tgeo, CPU),
                                   _t(pwr), step_s)
     assert _rel(t_nf.noise_floor.numpy(), j_nf.noise_floor) <= 1e-6
     assert _rel(tbl.despiked_mean(_t(pwr)).numpy(),
@@ -308,35 +320,37 @@ def test_stupid_blanker_and_noise_floor(seed):
 
 def test_fft2():
     geo = GEOS["tiny"]
+    tgeo = T_GEOS["tiny"]
     rng = np.random.default_rng(9)
     j_tab, t_tab = jfft2.FFT2Tables.create(geo), tfft2.FFT2Tables.create(
-        geo, CPU)
-    j_st, t_st = jfft2.FFT2State.create(geo), tfft2.FFT2State.create(geo, CPU)
+        tgeo, CPU)
+    j_st, t_st = jfft2.FFT2State.create(geo), tfft2.FFT2State.create(tgeo, CPU)
     for _ in range(2):
         weak = _cnoise(rng, (geo.samples_per_step, 1))
         strong = _cnoise(rng, (geo.samples_per_step, 1), 5.0)
         jt, js = jfft2.fft2_transform(geo, j_tab, j_st.tail,
                                       jnp.asarray(weak), jnp.asarray(strong))
-        tt, ts = tfft2.fft2_transform(geo, t_tab, t_st.tail, _t(weak),
+        tt, ts = tfft2.fft2_transform(tgeo, t_tab, t_st.tail, _t(weak),
                                       _t(strong))
         assert _rel(ts.numpy(), js) <= FP32
         np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
         j_st, jp = jfft2.fft2_power_update(geo, j_st, jt, js, 8)
-        t_st, tp = tfft2.fft2_power_update(geo, t_st, tt, ts, 8)
+        t_st, tp = tfft2.fft2_power_update(tgeo, t_st, tt, ts, 8)
         assert _rel(tp.numpy(), jp) <= FP32
         assert _rel(t_st.sumsq_avg.numpy(), j_st.sumsq_avg) <= FP32
 
 
 def test_fft3():
     geo = GEOS["tiny"]
+    tgeo = T_GEOS["tiny"]
     rng = np.random.default_rng(10)
     j_tab, t_tab = jfft3.FFT3Tables.create(geo), tfft3.FFT3Tables.create(
-        geo, CPU)
-    j_st, t_st = jfft3.FFT3State.create(geo), tfft3.FFT3State.create(geo, CPU)
+        tgeo, CPU)
+    j_st, t_st = jfft3.FFT3State.create(geo), tfft3.FFT3State.create(tgeo, CPU)
     for _ in range(2):
         x = _cnoise(rng, (geo.fft3_frames_per_step * geo.fft3_new_points, 1))
         j_st, js = jfft3.fft3_step(geo, j_tab, j_st, jnp.asarray(x))
-        t_st, ts = tfft3.fft3_step(geo, t_tab, t_st, _t(x))
+        t_st, ts = tfft3.fft3_step(tgeo, t_tab, t_st, _t(x))
         assert _rel(ts.numpy(), js) <= FP32
         np.testing.assert_array_equal(t_st.tail.numpy(),
                                       np.asarray(j_st.tail))
@@ -350,10 +364,11 @@ def test_mix1(center, frac):
     """Three steps so the integer phase and the fractional phase carry:
     phase_idx exact, timf3 and carries fp32."""
     geo = GEOS["tiny"]
+    tgeo = T_GEOS["tiny"]
     rng = np.random.default_rng(11)
     j_tab, t_tab = jmix1.Mix1Tables.create(geo), tmix1.Mix1Tables.create(
-        geo, CPU)
-    j_st, t_st = jmix1.Mix1State.create(geo), tmix1.Mix1State.create(geo, CPU)
+        tgeo, CPU)
+    j_st, t_st = jmix1.Mix1State.create(geo), tmix1.Mix1State.create(tgeo, CPU)
     jf = None if frac is None else jnp.float32(frac)
     tf = None if frac is None else torch.tensor(frac, dtype=torch.float32)
     for _ in range(3):
@@ -361,7 +376,7 @@ def test_mix1(center, frac):
                        10.0)
         j_st, jy = jmix1.mix1_step(geo, j_tab, j_st, jnp.asarray(spec),
                                    jnp.int32(center), tune_frac=jf)
-        t_st, ty = tmix1.mix1_step(geo, t_tab, t_st, _t(spec),
+        t_st, ty = tmix1.mix1_step(tgeo, t_tab, t_st, _t(spec),
                                    torch.tensor(center), tune_frac=tf)
         assert _rel(ty.numpy(), jy) <= FP32
         assert int(t_st.phase_idx) == int(j_st.phase_idx)
@@ -372,15 +387,17 @@ def test_mix1(center, frac):
 
 def test_mix2():
     geo = GEOS["tiny"]
+    tgeo = T_GEOS["tiny"]
     p = _flagship_params(tiny=True)
     rng = np.random.default_rng(12)
     j_tab = jmix2.Mix2Tables.create(geo, p)
-    t_tab = tmix2.Mix2Tables.create(geo, p, CPU)
-    j_st, t_st = jmix2.Mix2State.create(geo), tmix2.Mix2State.create(geo, CPU)
+    t_tab = tmix2.Mix2Tables.create(tgeo, convert.params_from_jax(p),
+                                     CPU)
+    j_st, t_st = jmix2.Mix2State.create(geo), tmix2.Mix2State.create(tgeo, CPU)
     for _ in range(2):
         spec = _cnoise(rng, (geo.fft3_frames_per_step, geo.fft3_size, 1))
         j_st, jb, _ = jmix2.mix2_step(geo, j_tab, j_st, jnp.asarray(spec))
-        t_st, tb, tc = tmix2.mix2_step(geo, t_tab, t_st, _t(spec))
+        t_st, tb, tc = tmix2.mix2_step(tgeo, t_tab, t_st, _t(spec))
         assert tc is None
         assert _rel(tb.numpy(), jb) <= FP32
         assert _rel(t_st.ola_carry.numpy(), j_st.ola_carry) <= FP32
@@ -455,10 +472,10 @@ def test_bfo_ssb():
 
 
 def test_unported_fft1_input_refused():
-    p = dataclasses.replace(_flagship_params(tiny=True),
-                            input_mode=0)
-    geo = derive_geometry(p)
+    p = convert.params_from_jax(dataclasses.replace(
+        _flagship_params(tiny=True), input_mode=0))
+    geo = t_derive_geometry(p)
     from linrad_tpu_torch.ops import fft1 as tfft1
     with pytest.raises(NotImplementedError, match="item 13"):
         tfft1.fft1_step(geo, None, None, None, 8)
-    assert isinstance(p, RxParams)
+    assert isinstance(p, TRxParams)

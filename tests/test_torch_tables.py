@@ -18,6 +18,7 @@ from linrad_tpu.ops import sellim as jsellim
 from linrad_tpu.pipeline.chain import RxState as JRxState
 from linrad_tpu.pipeline.chain import RxTables as JRxTables
 from linrad_tpu_torch import convert, flagship_params
+from linrad_tpu_torch import derive_geometry as t_derive_geometry
 from linrad_tpu_torch.ops import blanker as tbl
 from linrad_tpu_torch.ops import fft1 as tfft1
 from linrad_tpu_torch.ops import mix1 as tmix1
@@ -32,13 +33,21 @@ def _params(name):
     return _flagship_params(tiny=name == "tiny")
 
 
+def _t_geo(p):
+    """The port's own Geometry for the JAX package's RxParams p."""
+    return t_derive_geometry(convert.params_from_jax(p))
+
+
 @pytest.mark.parametrize("name", GEOS)
 def test_flagship_params_match_entry(name):
     tiny = name == "tiny"
-    assert flagship_params(tiny=tiny) == dataclasses.replace(
-        _flagship_params(tiny=tiny), fft1_variant="pallas")
+    assert flagship_params(tiny=tiny) == convert.params_from_jax(
+        dataclasses.replace(_flagship_params(tiny=tiny),
+                            fft1_variant="pallas"))
     assert flagship_params(tiny=tiny, fft1_variant=None) == \
-        _flagship_params(tiny=tiny)
+        convert.params_from_jax(_flagship_params(tiny=tiny))
+    assert dataclasses.asdict(flagship_params(tiny=tiny, fft1_variant=None)) \
+        == dataclasses.asdict(_flagship_params(tiny=tiny))
 
 
 @pytest.mark.parametrize("name", GEOS)
@@ -70,22 +79,24 @@ def test_fqwin_weight(name):
                                     "compensate_fqwin": False}])
 def test_bg_filter(name, extra):
     geo = derive_geometry(_params(name))
+    tgeo = _t_geo(_params(name))
     np.testing.assert_array_equal(
-        tmix2.bg_filter(geo, -1500.0, 1500.0, **extra),
+        tmix2.bg_filter(tgeo, -1500.0, 1500.0, **extra),
         jmix2.bg_filter(geo, -1500.0, 1500.0, **extra))
     freq = np.linspace(-3000.0, 3000.0, 257)
     np.testing.assert_array_equal(
-        tmix2._filter_response(freq, geo, -800.0, 1200.0, **extra),
+        tmix2._filter_response(freq, tgeo, -800.0, 1200.0, **extra),
         jmix2._filter_response(freq, geo, -800.0, 1200.0, **extra))
 
 
 @pytest.mark.parametrize("name", GEOS)
 def test_edge_taper_and_sellim_limit(name):
     geo = derive_geometry(_params(name))
-    np.testing.assert_array_equal(tfft1.edge_taper_response(geo),
+    tgeo = _t_geo(_params(name))
+    np.testing.assert_array_equal(tfft1.edge_taper_response(tgeo),
                                   jfft1.edge_taper_response(geo))
     for level in (8.0, 3.5):
-        assert tsellim.sellim_limit(geo, level) == \
+        assert tsellim.sellim_limit(tgeo, level) == \
             jsellim.sellim_limit(geo, level)
 
 
@@ -102,7 +113,8 @@ def test_rx_tables_create_equals_converted_jax(name):
     p = _params(name)
     geo = derive_geometry(p)
     ref = convert.flatten(JRxTables.create(geo, p))
-    port = convert.flatten(RxTables.create(geo, p, "cpu"))
+    port = convert.flatten(RxTables.create(
+        _t_geo(p), convert.params_from_jax(p), "cpu"))
     _assert_trees_equal(port, ref)
     carried = convert.flatten(convert.tables_from_numpy(ref, "cpu"))
     assert carried.keys() == port.keys()
@@ -113,7 +125,8 @@ def test_rx_tables_create_equals_converted_jax(name):
 def test_rx_state_create_and_round_trip(name):
     geo = derive_geometry(_params(name))
     ref = convert.flatten(JRxState.create(geo))
-    port = convert.state_to_numpy(RxState.create(geo, "cpu"))
+    port = convert.state_to_numpy(RxState.create(_t_geo(_params(name)),
+                                                 "cpu"))
     _assert_trees_equal(port, ref)
     back = convert.state_to_numpy(convert.state_from_numpy(ref, "cpu"))
     assert back.keys() == port.keys()
