@@ -46,14 +46,44 @@ Phases, in order; any failure raises and the script exits non-zero:
             read of fft2_power per step) and with the bare step on fixed
             per-frame tuning, in turns.
 
+8. multi    the flagship configuration with spur cancellation, squelch
+            and expander through MultiReceiver with 24 sub-receivers (the
+            reference's MIX1_NO_OF_CHANNELS) on the default device, 10
+            steps of the flagship input plus a weak keyed tone on each of
+            the 24 dials; the spur manager (WeakSignalControl) scans every
+            second step.  One kernel launch per step; a spur slot holds
+            the strong carrier's fft2 bin; fft2_power there falls by more
+            than 20 dB against the same run without spur cancellation
+            while the 24 dial bins stay within 3 dB; every sub-receiver's
+            audio peaks at the BFO pitch; three sub-receivers equal a
+            single Receiver on the same dial (baseb <= 1e-4); a torch.fft
+            ("xla") MultiReceiver gives the same slot bins, blanker counts
+            and liminfo signs and the same fields within the bars.  Prints
+            step time and rate at K = 1 and K = 24 in turns, the device
+            operations per step at both from torch.profiler, and the
+            control's host reads.
+9. real     real input at full width (192 kHz real samples, the same 96
+            kHz timf1 rate, fft1 2048, fft2 4096), mixer mode 2 and the
+            audio resampler at twice the baseband rate through Receiver
+            for 6 steps: a real tone on the dial comes out at the BFO
+            pitch at the resampled rate, no kernel launch (the JAX
+            package's dispatch takes torch.fft for real input); then 3
+            steps of IQ input with an I/Q correction table, no launch
+            either.
+
+``python3 chip_smoke.py --stages`` runs phases 1 and 2 and then, instead
+of the smoke run, a diagnostic: the synced wall time of every stage of
+the multi-receiver step at K = 24 and K = 1.
+
 It prints a JSON line describing every kernel of the paths (launches
-summed over the flagship and EME runs; times at the flagship's shape, and
-per shape under "by_shape"), then, as the last line,
-{"ok": true, "device": {...}}.
+summed over the flagship, EME, multi-receiver and real-input runs; times
+at the flagship's shape, and per shape under "by_shape"), then, as the
+last line, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -82,6 +112,11 @@ CHAIN_TOL_OTHER = 1e-4
 # reaches the audio ~40x amplified.  Measured 5.5e-4 on an H100; every
 # other field, and audio from step 1 on, is held to the bars above.
 START_AUDIO_TOL = 1e-3
+# The multi-receiver path in step 0: the worst of 24 sub-receivers, and
+# the expander (exponent 2) squares the audio under the AGC's reference
+# level, which doubles its relative error.  Measured on an H100: audio
+# 1.9e-3, agc_gain 3.2e-4; from step 1 on 3.4e-5 and 1.1e-5.
+MULTI_START_TOL = {"audio": 4e-3, "agc_gain": 1e-3}
 TUNE_HZ = 12_345.6
 CARRIER_HZ = -21_000.0
 # the EME path
@@ -90,6 +125,23 @@ EME_TIME_STEPS = 8
 EME_TUNE_HZ = 1_000.0
 EME_POL = np.array([0.8, 0.6j])
 EME_BFO_HZ = 600.0
+# the multi-receiver and real-input paths
+MULTI_K = 24
+MULTI_STEPS = 10
+MULTI_TIME_STEPS = 6
+# The dial tones must open the squelch (in-band power over 4 times the
+# quietest bins': amplitude^2 * duty > 13 beside noise of 10 a component)
+# and stay below what sellim calls strong (amplitude^2 * duty < 32), so
+# that the front end does not depend on which dial it protects.
+MULTI_TONE_AMPLITUDE = 6.6
+# A steady carrier on an fft2 bin centre, weak enough that sellim does not
+# limit it (amplitude^2 < 32): the spur whose cancellation depth is held
+# to 20 dB.  The 2000-amplitude carrier reaches fft2 limited to 26 dB over
+# the noise, re-shaped by the limiter's per-bin gains.
+MULTI_SPUR_HZ = 30_000.0
+MULTI_SPUR_AMPLITUDE = 4.5
+BFO_HZ = 800.0
+REAL_STEPS = 6
 
 
 def max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -107,6 +159,9 @@ def phase_device() -> dict:
                          "this smoke run needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is still on for cuBLAS or cuDNN")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -226,20 +281,35 @@ def phase_kernel(dev: dict) -> dict:
     return report
 
 
-def make_input(geo, seed: int = 0) -> np.ndarray:
-    """STEPS steps of: weak on/off-keyed CW at the dial frequency TUNE_HZ
-    (the BFO puts it at 800 Hz audio), complex Gaussian noise, impulse
-    noise and a strong carrier."""
+def make_input(geo, seed: int = 0, steps: int = STEPS, tones=(TUNE_HZ,),
+               tone_amplitude: float = 10.0, spur=None) -> np.ndarray:
+    """steps steps of: a weak on/off-keyed CW tone at each frequency of
+    ``tones`` (the dial frequency TUNE_HZ: the BFO puts it at 800 Hz
+    audio), complex Gaussian noise, impulse noise, a strong carrier and,
+    with ``spur`` = (Hz, amplitude), a weak steady one."""
     rng = np.random.default_rng(seed)
     fs = geo.timf1_sampling_speed
-    n = STEPS * geo.samples_per_step
+    n = steps * geo.samples_per_step
     t = np.arange(n) / fs
     key = (np.floor(t / 0.06) % 4 < 2).astype(np.float64)   # 60 ms elements
-    tone = 10.0 * key * np.exp(2j * np.pi * TUNE_HZ * t)
+    tone = np.zeros(n, np.complex128)
+    # several tones: each with its own phase and keying offset, or their
+    # sum would be a pulse train that the blankers take for impulse noise
+    trng = np.random.default_rng(seed + 1000)
+    for f in tones:
+        if len(tones) > 1:
+            shift = int(trng.integers(0, int(0.24 * fs)))
+            phase = np.exp(2j * np.pi * trng.uniform())
+            tone += tone_amplitude * phase * np.roll(key, shift) \
+                * np.exp(2j * np.pi * f * t)
+        else:
+            tone += tone_amplitude * key * np.exp(2j * np.pi * f * t)
     carrier = 2000.0 * np.exp(2j * np.pi * CARRIER_HZ * t + 0.3j)
+    if spur is not None:
+        carrier += spur[1] * np.exp(2j * np.pi * spur[0] * t + 1.1j)
     noise = 10.0 * (rng.normal(size=n) + 1j * rng.normal(size=n))
     imp = np.zeros(n, np.complex128)
-    pos = rng.integers(0, n, size=STEPS * max(8, geo.samples_per_step // 1600))
+    pos = rng.integers(0, n, size=steps * max(8, geo.samples_per_step // 1600))
     imp[pos] = 3000.0 * np.exp(2j * np.pi * rng.uniform(size=pos.size))
     return (tone + carrier + noise + imp).astype(np.complex64)[:, None]
 
@@ -312,11 +382,13 @@ def check_outputs(outs: list, shapes: dict) -> None:
                 raise AssertionError(f"step {i} {k}: non-finite values")
 
 
-def compare_runs(outs: list, ref: list, keys, label: str) -> None:
+def compare_runs(outs: list, ref: list, keys, label: str,
+                 start_tol: dict | None = None) -> None:
     """The receiver through the kernel (outs) against the receiver through
     torch.fft (ref): blanker counts and the liminfo sign pattern exact in
     every step, each float field within its bar (step 0's audio within
-    START_AUDIO_TOL)."""
+    START_AUDIO_TOL, or step 0's fields within ``start_tol``)."""
+    start_tol = start_tol or {"audio": START_AUDIO_TOL}
     # worst max_rel per field: over the start-up step, and over the rest
     start, steady = {}, {}
     for i, (a, b) in enumerate(zip(outs, ref)):
@@ -338,8 +410,8 @@ def compare_runs(outs: list, ref: list, keys, label: str) -> None:
                         (f"steps 1-{len(outs) - 1}", steady)):
         for k, v in worst.items():
             bar = CHAIN_TOL.get(k, CHAIN_TOL_OTHER)
-            if span == "step 0" and k == "audio":
-                bar = START_AUDIO_TOL
+            if span == "step 0":
+                bar = start_tol.get(k, bar)
             print(f"{label}pallas vs xla on the card, {span}: {k} max_rel "
                   f"{v:.3e} (bar {bar})")
             if v > bar:
@@ -603,15 +675,478 @@ def phase_eme_timing(dev: dict, rx, iq: np.ndarray) -> None:
         raise AssertionError("expected one host read per Receiver step")
 
 
+def audio_peak_hz(audio: torch.Tensor, fs: float) -> float:
+    """Frequency of the strongest line of a real audio stream (S,)."""
+    a = audio.double().cpu().numpy()
+    spec = np.abs(np.fft.rfft(a)) ** 2
+    return (np.argmax(spec[1:]) + 1) * fs / a.size
+
+
+def multi_params(fft1_variant: str, tiny: bool, spur: bool = True):
+    """The flagship configuration with spur cancellation, squelch and
+    expander; ``tiny`` cuts it to size for a rehearsal on the CPU."""
+    from linrad_tpu_torch import flagship_params
+    return dataclasses.replace(
+        flagship_params(tiny=tiny, fft1_variant=fft1_variant),
+        spur_enable=spur, squelch_enable=True, expander_exponent=2.0)
+
+
+def multi_dials(geo, k_sub: int) -> list:
+    """k_sub dial frequencies on fftx bin centres, spread unevenly over
+    the band, none within 2.5 kHz of the strong carrier."""
+    fs, n = geo.timf1_sampling_speed, geo.fftx_size
+    cand = -0.45 * fs + 0.9 * fs * np.arange(k_sub + 4) / (k_sub + 3)
+    cand = cand + np.random.default_rng(11).uniform(-0.005, 0.005,
+                                                    cand.size) * fs
+    cand = [f for f in cand if abs(f - CARRIER_HZ) > 2500.0
+            and abs(f - MULTI_SPUR_HZ) > 2500.0][:k_sub]
+    return [round(f / fs * n) * fs / n for f in cand]
+
+
+def dial_protecting_manager(geo, dials):
+    """A SpurManager that protects every dial's passband.
+
+    The manager protects +-7 bins around one tuned bin (the Receiver's own,
+    sub-receiver 0's for a MultiReceiver), and a tone that opens the
+    squelch stands 25 dB over the median fft2 bin, 11 dB over the manager's
+    threshold: it would take the other dials' signals for spurs.  This one
+    sees the median level at +-7 bins around every dial, so it can only
+    pick what lies between them: here the strong carrier, which sellim has
+    limited to 26 dB over the median by the time fft2 sees it."""
+    from linrad_tpu_torch.weak.spur import SpurManager
+    n, fs = geo.fftx_size, geo.timf1_sampling_speed
+    centres = np.array([int(round(f / fs * n)) for f in dials])
+    protected = (centres[:, None] + np.arange(-7, 8)[None, :]).ravel() % n
+
+    class DialProtectingManager(SpurManager):
+        def scan(self, avg_power, state, protect_lo=-1, protect_hi=-1):
+            avg = np.array(avg_power, np.float64)
+            avg[protected] = np.median(avg)
+            return super().scan(avg, state, protect_lo, protect_hi)
+
+    return DialProtectingManager(geo)
+
+
+def run_multi(p, k_sub: int, dials, iq: np.ndarray, steps: int, device,
+              scan_interval: int | None = None):
+    """MultiReceiver over ``steps`` steps with the spur manager scanning
+    beside it.  ``device`` None takes the receiver's default;
+    ``scan_interval`` overrides the control's (a rehearsal at a tiny step
+    size, where the interval is far longer than the run).  Returns
+    (receiver, control, outputs, spur slot bins after each step)."""
+    from linrad_tpu_torch.pipeline.control import WeakSignalControl
+    from linrad_tpu_torch.pipeline.receiver import MultiReceiver
+    rx = (MultiReceiver(p, k_sub) if device is None
+          else MultiReceiver(p, k_sub, device=device))
+    for k, f in enumerate(dials):
+        rx.tune_subch(k, f)
+    ctl = WeakSignalControl(rx.geo, p, rx.device)
+    if ctl.spur_manager is not None:
+        ctl.spur_manager = dial_protecting_manager(rx.geo, dials)
+    if scan_interval:
+        ctl.spur_scan_interval = scan_interval
+    s = rx.geo.samples_per_step
+    outs, slots = [], []
+    for i in range(steps):
+        out = rx.process_block(iq[i * s:(i + 1) * s])
+        _bins, rx.state = ctl.update(out, rx._tune_bins, rx.state)
+        outs.append(out)
+        slots.append(None if rx.state.spur is None
+                     else rx.state.spur.bins.cpu().numpy().copy())
+    return rx, ctl, outs, slots
+
+
+def count_device_ops(fn) -> tuple:
+    """(aten operations, device kernels and copies) of one call of fn, from
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    events = prof.key_averages()
+    aten = sum(e.count for e in events if e.key.startswith("aten::"))
+    cuda = sum(e.count for e in events
+               if str(e.device_type).endswith("CUDA"))
+    return aten, cuda
+
+
+def phase_multi(dev: dict, device=None, tiny: bool = False,
+                k_sub: int = MULTI_K, scan_interval: int | None = None
+                ) -> int:
+    """The multi-receiver path.  Returns the kernel's launch count over
+    its MULTI_STEPS steps.  ``device="cpu"`` with ``tiny=True`` rehearses
+    the control flow (the launch count is then not checked)."""
+    from linrad_tpu_torch import derive_geometry
+    from linrad_tpu_torch.ops.fused_fft1 import fused_fft1
+    from linrad_tpu_torch.pipeline.receiver import MultiReceiver, Receiver
+    on_card = device is None or torch.device(device).type == "cuda"
+    p = multi_params("pallas", tiny)
+    geo = derive_geometry(p)
+    dials = multi_dials(geo, k_sub)
+    steps = MULTI_STEPS
+    iq = make_input(geo, seed=5, steps=steps + MULTI_TIME_STEPS, tones=dials,
+                    tone_amplitude=MULTI_TONE_AMPLITUDE,
+                    spur=(MULTI_SPUR_HZ, MULTI_SPUR_AMPLITUDE))
+    fused_fft1.launches = 0
+    rx, ctl, outs, slots = run_multi(p, k_sub, dials, iq, steps, device,
+                                     scan_interval)
+    launches = fused_fft1.launches
+    interval = ctl.spur_scan_interval
+    print(f"multi path: MultiReceiver K={k_sub} on {rx.device}, {steps} steps "
+          f"of {geo.samples_per_step} samples, fused_fft1 launches "
+          f"{launches}; spur scan every {interval} step(s); host reads "
+          f"{ctl.host_reads} ({ctl.host_reads / steps:.1f} per step)")
+    if on_card and launches != steps:
+        raise AssertionError(f"multi: expected {steps} kernel launches (one "
+                             f"per step), saw {launches}")
+    if on_card and rx.device.type != "cuda":
+        raise AssertionError("multi: the default device is not the card")
+    bb = geo.baseband_samples_per_step
+    shapes = {"audio": (k_sub, bb, 1), "baseb": (k_sub, bb, 1),
+              "fft1_power": (geo.fft1_size, 1),
+              "fft1_avg_power": (geo.fft1_size, 1),
+              "agc_gain": (k_sub, bb, 1), "fft2_power": (geo.fft2_size, 1),
+              "liminfo": (geo.fft1_size,), "blanker_fitted": (),
+              "blanker_cleared": (), "noise_floor": ()}
+    check_outputs(outs, shapes)
+    print(f"multi: blanker_fitted {[int(o.blanker_fitted) for o in outs]}; "
+          f"blanker_cleared {[int(o.blanker_cleared) for o in outs]}")
+
+    # the spurs: one slot on each carrier's bin; the steady weak one more
+    # than 20 dB down
+    n = geo.fftx_size
+    fs = geo.timf1_sampling_speed
+    carrier_bin = int(round(CARRIER_HZ / fs * n)) % n
+    spur_bin = int(round(MULTI_SPUR_HZ / fs * n)) % n
+    held = [int(b) for b in slots[-1] if b >= 0]
+    print(f"multi: spur slots after each step "
+          f"{[[int(b) for b in sl if b >= 0] for sl in slots]}; the strong "
+          f"carrier at fft2 bin {carrier_bin}, the weak one at {spur_bin}")
+    for b in (carrier_bin, spur_bin):
+        # (at the tiny size the weak carrier stays under the manager's
+        # threshold)
+        if sum(abs(h - b) <= 1 for h in held) != 1 and not tiny:
+            raise AssertionError(f"multi: no single spur slot on bin {b}: "
+                                 f"{held}")
+    _, _, plain, _ = run_multi(multi_params("pallas", tiny, spur=False),
+                               k_sub, dials, iq, steps, device,
+                               scan_interval)
+    on = outs[-1].fft2_power[:, 0].double()
+    off = plain[-1].fft2_power[:, 0].double()
+    med = off.median().item()
+    down = {b: 10 * np.log10(off[b].item() / on[b].item())
+            for b in (carrier_bin, spur_bin)}
+    dial_bins = [int(round(f / fs * n)) % n for f in dials]
+    dial_db = (10 * torch.log10(on[dial_bins] / off[dial_bins])).abs().max()
+    print(f"multi: fft2_power with spur cancellation against the same run "
+          f"without: the weak carrier {down[spur_bin]:.1f} dB down (bar 20 "
+          f"dB; it stood {10 * np.log10(off[spur_bin].item() / med):.1f} dB "
+          f"over the median bin); the strong carrier, limited by sellim, "
+          f"{down[carrier_bin]:.1f} dB down (bar 10 dB; it stood "
+          f"{10 * np.log10(off[carrier_bin].item() / med):.1f} dB over the "
+          f"median); the {k_sub} dial bins within {dial_db.item():.3f} dB "
+          f"(bar 3 dB)")
+    if not tiny and (down[spur_bin] <= 20.0 or down[carrier_bin] <= 10.0
+                     or dial_db.item() >= 3.0):
+        raise AssertionError("multi: a spur is not down by its bar, or a "
+                             "dial bin moved by 3 dB")
+
+    # every sub-receiver's audio: finite, non-zero, at the BFO pitch
+    audio = torch.cat([o.audio for o in outs], dim=1)[:, :, 0]
+    peaks = [audio_peak_hz(audio[k], geo.baseband_sampling_speed)
+             for k in range(k_sub)]
+    gates = rx.nbs.squelch.gate.cpu().numpy()
+    print(f"multi: audio peaks (Hz) {[round(float(f), 1) for f in peaks]}; squelch "
+          f"gates {np.round(gates, 3).tolist()}")
+    if not tiny:
+        for k, f in enumerate(peaks):
+            if float(audio[k].abs().max()) == 0 or abs(f - BFO_HZ) > 20.0:
+                raise AssertionError(f"multi: sub-receiver {k} has no tone "
+                                     f"at the BFO pitch: peak {f} Hz")
+
+    # three sub-receivers against a single Receiver on the same dial
+    s = geo.samples_per_step
+    for k in sorted({0, k_sub // 2, k_sub - 1}):
+        one = Receiver(p, device=rx.device)
+        one.control.spur_manager = dial_protecting_manager(geo, dials)
+        if scan_interval:
+            one.control.spur_scan_interval = scan_interval
+        one.tune(dials[k])
+        worst = 0.0
+        for i in range(steps):
+            ref = one.process_block(iq[i * s:(i + 1) * s])
+            worst = max(worst, max_rel(outs[i].baseb[k], ref.baseb))
+        print(f"multi: sub-receiver {k} (dial {dials[k]:.1f} Hz) vs a "
+              f"single Receiver: baseb max_rel {worst:.3e} (bar 1e-4)")
+        # (at the tiny size the impulses make every fft1 bin strong, and
+        # the front end then depends on which dial's passband it protects)
+        if worst > 1e-4 and not tiny:
+            raise AssertionError(f"multi: sub-receiver {k} differs from the "
+                                 f"single Receiver")
+
+    # the kernel against torch.fft
+    _, _, ref, ref_slots = run_multi(multi_params("xla", tiny), k_sub, dials,
+                                     iq, steps, device, scan_interval)
+    for i, (a, b) in enumerate(zip(slots, ref_slots)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"multi step {i}: spur slot bins differ "
+                                 f"from the xla receiver's: {a} != {b}")
+    print("multi: pallas vs xla spur slot bins exact in every step")
+    compare_runs(outs, ref, shapes, "multi: ", MULTI_START_TOL)
+
+    if on_card:
+        phase_multi_timing(dev, p, dials, iq[steps * s:])
+    return launches
+
+
+def phase_multi_timing(dev: dict, p, dials, iq: np.ndarray) -> None:
+    """Step time at K = 1 and K = MULTI_K in turns, the device operations
+    per step at both, and the no-synchronisation check."""
+    from linrad_tpu_torch.pipeline.receiver import MultiReceiver
+    times, ops = {}, {}
+    for k_sub in (1, MULTI_K, MULTI_K, 1):
+        rx = MultiReceiver(p, k_sub)
+        for k in range(k_sub):
+            rx.tune_subch(k, dials[k])
+        s = rx.geo.samples_per_step
+        blocks = [torch.from_numpy(iq[i * s:(i + 1) * s]).cuda()
+                  for i in range(iq.shape[0] // s)]
+        for b in blocks[:2]:
+            rx.process_block(b)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for b in blocks:
+            rx.process_block(b)
+        host_s = time.perf_counter() - t0
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / len(blocks)
+        times.setdefault(k_sub, []).append(ms)
+        print(f"multi timing K={k_sub}: {ms:.3f} ms/step (CUDA events), "
+              f"host enqueue {1e3 * host_s / len(blocks):.3f} ms/step, "
+              f"{s / ms / 1e3:.3f} complex Msamples/s in, "
+              f"{k_sub * s / ms / 1e3:.3f} summed over sub-receivers "
+              f"[{dev['smi']}]")
+        if k_sub not in ops:
+            ops[k_sub] = count_device_ops(
+                lambda: rx.process_block(blocks[0]))
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                rx.process_block(blocks[0])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+    for k_sub, (aten, cuda) in ops.items():
+        print(f"multi: operations per step at K={k_sub}: {aten} aten "
+              f"operations, {cuda} device kernels and copies "
+              f"(torch.profiler)")
+    ratio = (sum(times[MULTI_K]) / sum(times[1]))
+    print(f"multi timing: K={MULTI_K} step / K=1 step = {ratio:.3f}; a "
+          f"multi-receiver step on device input makes no host "
+          f"synchronisation")
+    a1, a24 = ops[1][0], ops[MULTI_K][0]
+    if abs(a24 - a1) > 0.01 * a1:
+        raise AssertionError(f"multi: operations per step grow with K: "
+                             f"{a1} at K=1, {a24} at K={MULTI_K}")
+
+
+def phase_real(dev: dict, device="cuda", tiny: bool = False) -> int:
+    """Real input, mixer mode 2 and the audio resampler, then I/Q
+    correction on IQ input.  Returns the kernel's launch count on these
+    paths, which must be 0 (the uncorrected receiver that the corrected one
+    is compared with does launch it; that is not counted)."""
+    from linrad_tpu_torch import InputMode, derive_geometry, flagship_params
+    from linrad_tpu_torch.ops.fused_fft1 import fused_fft1
+    from linrad_tpu_torch.pipeline.receiver import Receiver
+    base = flagship_params(tiny=tiny, fft1_variant="pallas")
+    p = dataclasses.replace(base, rx_ad_speed=2 * base.rx_ad_speed,
+                            input_mode=InputMode.REAL, mixer_mode=2)
+    geo = derive_geometry(p)
+    fs_out = 2.0 * geo.baseband_sampling_speed
+    print(f"real path: A/D {geo.rx_ad_speed} Hz real, timf1 "
+          f"{geo.timf1_sampling_speed:.0f} Hz, fft1 {geo.fft1_size} "
+          f"({geo.fft1_frames_per_step} frames of {2 * geo.fft1_size} real "
+          f"samples), fft2 {geo.fft2_size}, mixer mode 2, baseband "
+          f"{geo.baseband_sampling_speed:.0f} Hz resampled to {fs_out:.0f} Hz")
+    fused_fft1.launches = 0
+    rx = Receiver(p, device=device, audio_out_rate=fs_out)
+    dial = round(TUNE_HZ / geo.timf1_sampling_speed * geo.fftx_size) \
+        * geo.timf1_sampling_speed / geo.fftx_size
+    rx.tune(dial)
+    rng = np.random.default_rng(9)
+    rows = 2 * geo.samples_per_step
+    n = REAL_STEPS * rows
+    t = np.arange(n) / geo.rx_ad_speed
+    x = (8.0 * np.cos(2 * np.pi * dial * t) + 10.0 * rng.normal(size=n)
+         + 2000.0 * np.cos(2 * np.pi * 30_000.0 * t + 0.3)
+         ).astype(np.float32)[:, None]
+    blocks = [torch.from_numpy(x[i * rows:(i + 1) * rows]).to(device)
+              for i in range(REAL_STEPS)]
+    outs = [rx.process_block(b) for b in blocks]
+    fir = rx.tables.mix2.fir.shape[0]
+    block_out = rx._resampler.block_out
+    print(f"real: {len(outs)} steps of {rows} real samples, FIR of {fir} "
+          f"taps, audio {tuple(outs[-1].audio.shape)} per step (block_out "
+          f"{block_out}), fused_fft1 launches {fused_fft1.launches}")
+    bb = geo.baseband_samples_per_step
+    shapes = {"audio": (block_out, 1), "baseb": (bb, 1),
+              "fft1_power": (geo.fft1_size, 1), "agc_gain": (bb, 1),
+              "fft2_power": (geo.fft2_size, 1), "liminfo": (geo.fft1_size,)}
+    check_outputs(outs, shapes)
+    if block_out != 2 * bb:
+        raise AssertionError("real: the resampler does not double the rate")
+    audio = torch.cat([o.audio for o in outs[1:]])[:, 0]
+    peak = audio_peak_hz(audio, fs_out)
+    print(f"real: audio spectrum peak at {peak:.1f} Hz at the resampled "
+          f"rate (BFO {BFO_HZ} Hz)")
+    if not tiny and abs(peak - BFO_HZ) > 20.0:
+        raise AssertionError("real: the tone is not at the BFO pitch")
+    if torch.device(device).type == "cuda":
+        for b in blocks[:2]:
+            rx.process_block(b)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for b in blocks:
+            rx.process_block(b)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / len(blocks)
+        print(f"real timing: {ms:.3f} ms/step (CUDA events), "
+              f"{rows / ms / 1e3:.3f} real Msamples/s [{dev['smi']}]")
+    real_launches = fused_fft1.launches
+
+    # I/Q image correction on IQ input: the unfused path as well
+    geo_iq = derive_geometry(base)
+    corr = 0.01 * (rng.normal(size=geo_iq.fft1_size)
+                   + 1j * rng.normal(size=geo_iq.fft1_size))
+    iq = make_input(geo_iq, seed=6, steps=3)
+    s = geo_iq.samples_per_step
+    powers = []
+    for cal in ({"iq_corr": corr.astype(np.complex64)}, None):
+        rx = Receiver(base, device=device, calibration=cal)
+        rx.tune(TUNE_HZ)
+        before = fused_fft1.launches
+        outs = [rx.process_block(iq[i * s:(i + 1) * s]) for i in range(3)]
+        check_outputs(outs, {"audio": (geo_iq.baseband_samples_per_step, 1),
+                             "fft1_power": (geo_iq.fft1_size, 1)})
+        if cal is not None:
+            corr_launches = fused_fft1.launches - before
+        powers.append(outs[-1].fft1_power)
+    image_bin = (-int(round(CARRIER_HZ / geo_iq.timf1_sampling_speed
+                            * geo_iq.fft1_size))) % geo_iq.fft1_size
+    print(f"real: iq_corr on IQ input, 3 steps, fused_fft1 launches "
+          f"{corr_launches}; fft1_power at the carrier's image bin "
+          f"{image_bin}: {powers[0][image_bin].item():.4g} with the table, "
+          f"{powers[1][image_bin].item():.4g} without")
+    if corr_launches != 0 or real_launches != 0:
+        raise AssertionError("real: the kernel was launched on a path the "
+                             "JAX package's dispatch sends to the plain FFT")
+    if torch.equal(powers[0], powers[1]):
+        raise AssertionError("real: the I/Q correction changed nothing")
+    return real_launches + corr_launches
+
+
+# stage functions of pipeline/chain.py: (module attribute of chain, name)
+STAGES = [(None, "fft1_step"), ("sellim_ops", "update_liminfo"),
+          ("sellim_ops", "liminfo_gains"), (None, "timf2_step"),
+          ("blanker_ops", "update_noise_floor"),
+          ("blanker_ops", "clever_blanker"),
+          ("blanker_ops", "stupid_blanker"), (None, "fft2_transform"),
+          (None, "spur_subtract_step"), (None, "fft2_power_update"),
+          (None, "mix1_step"), (None, "fft3_step"), (None, "mix2_step"),
+          ("demod_ops", "bfo_ssb"), ("agc_ops", "agc"), (None, "expander"),
+          (None, "squelch_step")]
+
+
+def stage_split(dev: dict, k_sub: int = MULTI_K, steps: int = 6) -> None:
+    """Diagnostic, not part of the smoke run (``python3 chip_smoke.py
+    --stages``): the multi-receiver step of phase 8 with a device
+    synchronisation before and after every stage function, so that each
+    stage's wall time holds its own launches and device work.  Prints ms
+    per stage and step, averaged over ``steps`` steps after 2 of warm-up.
+    The synced step is slower than the free-running one."""
+    from linrad_tpu_torch import derive_geometry
+    from linrad_tpu_torch.pipeline import chain
+    from linrad_tpu_torch.pipeline.receiver import MultiReceiver
+    p = multi_params("pallas", False)
+    geo = derive_geometry(p)
+    dials = multi_dials(geo, k_sub)
+    iq = make_input(geo, seed=5, steps=steps + 2, tones=dials,
+                    tone_amplitude=MULTI_TONE_AMPLITUDE,
+                    spur=(MULTI_SPUR_HZ, MULTI_SPUR_AMPLITUDE))
+    rx = MultiReceiver(p, k_sub)
+    for k, f in enumerate(dials):
+        rx.tune_subch(k, f)
+    # a slot on each carrier, as the manager sets them in phase 8
+    n, fs = geo.fftx_size, geo.timf1_sampling_speed
+    rx.state.spur.bins[0] = int(round(CARRIER_HZ / fs * n)) % n
+    rx.state.spur.bins[1] = int(round(MULTI_SPUR_HZ / fs * n)) % n
+    s = geo.samples_per_step
+    blocks = [torch.from_numpy(iq[i * s:(i + 1) * s]).cuda()
+              for i in range(steps + 2)]
+    spent = {}
+
+    def timed(fn, name):
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapper
+
+    saved = []
+    for mod, name in STAGES:
+        owner = chain if mod is None else getattr(chain, mod)
+        saved.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, timed(getattr(owner, name), name))
+    try:
+        for b in blocks[:2]:
+            rx.process_block(b)
+        spent.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in blocks[2:]:
+            rx.process_block(b)
+        torch.cuda.synchronize()
+        whole = time.perf_counter() - t0
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+    print(f"stage split, MultiReceiver K={k_sub}, synced wall ms per stage "
+          f"over {steps} steps [{dev['smi']}]:")
+    for name, sec in sorted(spent.items(), key=lambda kv: -kv[1]):
+        print(f"  {name}: {1e3 * sec / steps:.3f}")
+    rest = whole - sum(spent.values())
+    print(f"  outside the stages: {1e3 * rest / steps:.3f}; whole synced "
+          f"step {1e3 * whole / steps:.3f}")
+
+
 def main() -> None:
     dev = phase_device()
     phase_build()
+    if sys.argv[1:] == ["--stages"]:
+        stage_split(dev)
+        stage_split(dev, k_sub=1)
+        return
     kern = phase_kernel(dev)
     launches = phase_main()
     phase_timing(dev)
     eme_launches, eme_rx, eme_iq = phase_eme()
     phase_eme_timing(dev, eme_rx, eme_iq)
     launches += eme_launches
+    launches += phase_multi(dev)
+    launches += phase_real(dev)
     print(json.dumps({"kernels": [{
         "name": "fused_fft1", "route": "cuda",
         "source": "linrad_tpu_torch/csrc/fused_fft1.cu",

@@ -6,12 +6,17 @@ its own copies of the configuration modules (``params``, ``geometry``,
 ``linrad_tpu``, and returns the same ``RxOutputs`` fields, in PyTorch, with the TPU's Pallas kernel rewritten as a CUDA
 kernel for Hopper (``csrc/fused_fft1.cu``).
 
-Ported so far: the flagship receive step, ``pipeline.chain.make_rx_step``
-and ``pipeline.receiver.Receiver``, for IQ input with one or two
-channels, and the EME weak-signal path on top of it: adaptive
-polarization, the SSB, AM, FM and coherent detectors, and the AFC with
-drift tracking (``pipeline.control``).  Configurations off those slices
-raise NotImplementedError naming the ROADMAP entry that ports them.
+Ported so far: the whole receive chain, ``pipeline.chain.make_rx_step``
+and ``make_multi_rx_step`` with ``pipeline.receiver.Receiver`` and
+``MultiReceiver`` (K sub-receivers over one wideband front end): IQ or
+real input with one or two channels, I/Q image correction, both
+blankers, spur cancellation, both mixer modes, adaptive polarization, the
+SSB, AM, FM and coherent detectors, AGC, expander, squelch, the audio
+resampler, and the host-side AFC and spur manager
+(``pipeline.control``).  ``blanker_rounds>0``, the ``mxu`` fft1 variants
+and ``shards>1`` raise NotImplementedError naming their ROADMAP entry;
+the host layer (batching, checkpoints, latency, file replay) and the
+scale-out are still to come.
 
 This package never imports jax or ``linrad_tpu``;
 ``convert.params_from_jax`` turns the JAX package's ``RxParams`` into

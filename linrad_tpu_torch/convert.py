@@ -11,8 +11,12 @@ dataclass field path ("fft1.window", "mix1.phase_idx", "timf2_syn", ...).
 leaves convert with ``np.asarray`` (the JAX package's pytrees) or are
 torch tensors; None fields are left out.  :func:`tables_from_numpy` and
 :func:`state_from_numpy` build this port's ``RxTables``/``RxState`` from
-the keys they need, with each array's dtype kept.  Nothing here imports
-jax.
+the keys they need, with each array's dtype kept (the float32 real-input
+``fft1.tail``, the int32 ``spur.bins``, ...); optional fields
+(``spur_template``, ``fft1.iq_corr``, ``mix2.fir``, ``spur.*``,
+``squelch.gate``, ``mix2_fir.carry``) are carried when present.
+:func:`nbstate_from_numpy` does the same for an ``NBState``, stacked over
+sub-receivers or not.  Nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import numpy as np
 import torch
 
 from .params import Demod, InputMode, RxParams
-from .pipeline.chain import RxState, RxTables
+from .pipeline.chain import NBState, RxState, RxTables
 
 
 def params_from_jax(p) -> RxParams:
@@ -98,6 +102,13 @@ def state_from_numpy(tree: dict, device) -> RxState:
     return _build(RxState, tree, device, "")
 
 
-def state_to_numpy(state: RxState) -> dict[str, np.ndarray]:
-    """Port RxState -> flat numpy dict, keyed as the JAX state."""
+def nbstate_from_numpy(tree: dict, device) -> NBState:
+    """Flat numpy dict (JAX ``NBState`` flattened, with or without the
+    leading sub-receiver axis) -> port NBState."""
+    return _build(NBState, tree, device, "")
+
+
+def state_to_numpy(state: RxState | NBState) -> dict[str, np.ndarray]:
+    """Port RxState or NBState -> flat numpy dict, keyed as the JAX
+    state."""
     return flatten(state)

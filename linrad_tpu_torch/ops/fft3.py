@@ -25,7 +25,7 @@ class FFT3Tables:
 
 @dataclass
 class FFT3State:
-    tail: torch.Tensor  # (fft3_interleave, C) complex64
+    tail: torch.Tensor  # (..., fft3_interleave, C) complex64
 
     @classmethod
     def create(cls, geo: Geometry, device) -> "FFT3State":
@@ -36,8 +36,8 @@ class FFT3State:
 
 def fft3_step(geo: Geometry, tables: FFT3Tables, state: FFT3State,
               timf3: torch.Tensor) -> tuple[FFT3State, torch.Tensor]:
-    """timf3 (S3, C) -> fft3 spectra (n3, fft3_size, C)."""
+    """timf3 (..., S3, C) -> fft3 spectra (..., n3, fft3_size, C)."""
     frames, new_tail = frame_stream(state.tail, timf3, geo.fft3_size,
                                     geo.fft3_new_points)
-    spec = torch.fft.fft(frames * tables.window[None, :, None], dim=1)
+    spec = torch.fft.fft(frames * tables.window[:, None], dim=-2)
     return FFT3State(tail=new_tail), spec

@@ -62,9 +62,12 @@ class Mix1Tables:
 
 @dataclass
 class Mix1State:
-    phase_idx: torch.Tensor   # () int32 — phase in units of 1/N turn
-    ola_carry: torch.Tensor   # (mix1_interleave, C) complex64
-    frac_phase: torch.Tensor  # () float32 — fractional-tune phase, turns
+    """One sub-receiver's mixer state; the multi-receiver step stacks K of
+    them on a leading axis."""
+
+    phase_idx: torch.Tensor   # (...,) int32 — phase in units of 1/N turn
+    ola_carry: torch.Tensor   # (..., mix1_interleave, C) complex64
+    frac_phase: torch.Tensor  # (...,) float32 — fractional-tune phase, turns
 
     @classmethod
     def create(cls, geo: Geometry, device) -> "Mix1State":
@@ -82,15 +85,19 @@ def mix1_step(geo: Geometry, tables: Mix1Tables, state: Mix1State,
               ) -> tuple[Mix1State, torch.Tensor]:
     """Downconvert one step of fftx spectra to the timf3 stream.
 
-    spectra: (n, N, C) complex64 fftx transforms at hop H samples;
-    center_bins: () or (n,) integer tuned bin(s) (per frame on the AFC
-    path, do_mix1_afc mix1.c:648); tune_frac: optional () or (n,) float32
-    fractional bin offset (set_mix1_phases mix1.c:781-860); tune_slope:
-    optional () or (n,) float32 frequency change across each frame in
-    big-FFT bins per hop, which linearises AFC drift within a frame
-    (requires tune_frac).
+    spectra: (n, N, C) complex64 fftx transforms at hop H samples, shared
+    by every sub-receiver; center_bins: () or (n,) integer tuned bin(s)
+    (per frame on the AFC path, do_mix1_afc mix1.c:648); tune_frac:
+    optional () or (n,) float32 fractional bin offset (set_mix1_phases
+    mix1.c:781-860); tune_slope: optional () or (n,) float32 frequency
+    change across each frame in big-FFT bins per hop, which linearises AFC
+    drift within a frame (requires tune_frac).
 
-    Returns (new_state, timf3 (n * mix1_new_points, C) complex64)."""
+    With a state stacked on leading axes (K sub-receivers), center_bins,
+    tune_frac and tune_slope are (K, 1) or (K, n): the frame axis is
+    always the last.
+
+    Returns (new_state, timf3 (..., n * mix1_new_points, C) complex64)."""
     if tune_slope is not None and tune_frac is None:
         raise ValueError("tune_slope requires tune_frac (the slope "
                          "linearises the fractional-bin ramp)")
@@ -98,12 +105,14 @@ def mix1_step(geo: Geometry, tables: Mix1Tables, state: Mix1State,
     m = geo.mix1_size
     hop = geo.fftx_new_points
     dev = spectra.device
-    center = torch.broadcast_to(center_bins.to(torch.int64), (n,))
+    lead = tuple(state.phase_idx.shape)
+    center = torch.broadcast_to(center_bins.to(torch.int64), lead + (n,))
     rel = signed_bins(m, dev)
-    bins = torch.remainder(center[:, None] + rel[None, :], big_n)  # (n, M)
-    sel = torch.gather(spectra, 1, bins[:, :, None].expand(n, m, c))
-    sel = sel * tables.fqwin[None, :, None]
-    y = torch.fft.ifft(sel, dim=1) * (m / big_n)
+    bins = torch.remainder(center[..., None] + rel, big_n)     # (..., n, M)
+    frame = torch.arange(n, device=dev)[:, None]
+    sel = spectra[frame, bins]                               # (..., n, M, C)
+    sel = sel * tables.fqwin[:, None]
+    y = torch.fft.ifft(sel, dim=-2) * (m / big_n)
 
     # Integer phase bookkeeping: frame b is rotated by exp(-2 pi i phi_b/N)
     # with phi advancing by c_b*H (mod N) per frame.  The JAX version
@@ -111,20 +120,20 @@ def mix1_step(geo: Geometry, tables: Mix1Tables, state: Mix1State,
     # for power-of-two N.
     mask = big_n - 1
     incr = (center * hop) & mask
-    cum = torch.cumsum(incr, 0) - incr  # exclusive prefix
+    cum = torch.cumsum(incr, -1) - incr  # exclusive prefix
     phase0 = state.phase_idx.to(torch.int64)
-    idx = (phase0 + cum) & mask
+    idx = (phase0[..., None] + cum) & mask
     theta = (-2.0 * math.pi / big_n) * idx.to(torch.float32)
-    y = y * torch.complex(torch.cos(theta), torch.sin(theta))[:, None, None]
-    new_phase = ((phase0 + incr.sum()) & mask).to(torch.int32)
+    y = y * torch.complex(torch.cos(theta), torch.sin(theta))[..., None, None]
+    new_phase = ((phase0 + incr.sum(-1)) & mask).to(torch.int32)
 
-    timf3, carry = overlap_add(y * tables.syn[None, :, None],
+    timf3, carry = overlap_add(y * tables.syn[:, None],
                                geo.mix1_new_points, state.ola_carry)
     new_frac = state.frac_phase
     if tune_frac is not None:
         ramp, new_frac = frac_ramp(geo, state.frac_phase, tune_frac,
                                    tune_slope, n)
-        timf3 = timf3 * ramp[:, None]
+        timf3 = timf3 * ramp[..., None]
     return Mix1State(phase_idx=new_phase, ola_carry=carry,
                      frac_phase=new_frac), timf3
 
@@ -137,19 +146,20 @@ def frac_ramp(geo: Geometry, frac_phase: torch.Tensor,
     frequency is linear within each frame: frac is its value at the frame
     midpoint, slope its change per hop.
 
-    Returns (complex64 ramp of length n*mix1_new_points, final phase in
-    turns)."""
+    frac_phase (...,); tune_frac and tune_slope () or (..., n).  Returns
+    (complex64 ramp (..., n*mix1_new_points), final phase in turns)."""
     m = geo.mix1_size
     hop_m = geo.mix1_new_points
-    fr = torch.broadcast_to(tune_frac.to(torch.float32), (n,))
-    per_samp = torch.repeat_interleave(fr / m, hop_m)
+    lead = tuple(frac_phase.shape)
+    fr = torch.broadcast_to(tune_frac.to(torch.float32), lead + (n,))
+    per_samp = torch.repeat_interleave(fr / m, hop_m, dim=-1)
     if tune_slope is not None:
-        sl = torch.broadcast_to(tune_slope.to(torch.float32), (n,))
+        sl = torch.broadcast_to(tune_slope.to(torch.float32), lead + (n,))
         pos = (torch.arange(hop_m, dtype=torch.float32, device=fr.device)
                + 0.5) / hop_m - 0.5                   # (-0.5, 0.5)
-        per_samp = per_samp + torch.repeat_interleave(sl / m, hop_m) \
+        per_samp = per_samp + torch.repeat_interleave(sl / m, hop_m, dim=-1) \
             * pos.repeat(n)
-    cum = frac_phase + torch.cumsum(per_samp, 0) - per_samp
+    cum = frac_phase[..., None] + torch.cumsum(per_samp, -1) - per_samp
     theta = (-2.0 * math.pi) * torch.remainder(cum, 1.0)
     ramp = torch.complex(torch.cos(theta), torch.sin(theta))
-    return ramp, torch.remainder(frac_phase + per_samp.sum(), 1.0)
+    return ramp, torch.remainder(frac_phase + per_samp.sum(-1), 1.0)

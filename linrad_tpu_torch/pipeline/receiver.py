@@ -1,32 +1,43 @@
-"""Host-side receiver (port of linrad_tpu/pipeline/receiver.py:Receiver).
+"""Host-side receivers (port of linrad_tpu/pipeline/receiver.py).
 
-Owns the configuration, builds geometry, tables and state on one device,
-and streams blocks through the step.  The host slices input blocks, hands
-back outputs and runs the AFC (``control.WeakSignalControl``, one read of
-the fft2 power spectrum per step when the AFC is on); tuning is kept as
-device tensors (integer bin plus fractional-bin ramp, per frame once the
-AFC tracks), so a retune changes no shape.
+:class:`Receiver` owns the configuration, builds geometry, tables and
+state on one device, and streams blocks through the step.  The host
+slices input blocks, hands back outputs and runs the weak-signal control
+(``control.WeakSignalControl``: the AFC's one read of the power spectrum
+per step, the spur manager's scan about once a second of signal time);
+tuning is kept as device tensors (integer bin plus fractional-bin ramp,
+per frame once the AFC tracks), so a retune changes no shape.
 
-Not ported yet, and refused with NotImplementedError: the audio
-resampler (``audio_out_rate``) and the spur manager (ROADMAP queue 1
-item 13), ``Transport``, watchdog/monitor and user hooks (ROADMAP queue 1
-item 12), and every configuration that
-:func:`..pipeline.chain.check_supported` refuses.
+:class:`MultiReceiver` runs K independently tuned sub-receivers over one
+wideband front end; :class:`Transport` pauses, resumes and seeks a replay
+between steps.
+
+Both receivers run on ``device="cuda"`` unless the caller names another
+device, and raise when there is no CUDA device: nothing carries on on the
+CPU by itself.
+
+``run_file`` (WAV replay through the native prefetcher) is not ported: it
+belongs to the host layer (ROADMAP "Next").  Configurations that
+:func:`..pipeline.chain.check_supported` refuses raise
+NotImplementedError.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import threading
+import time
 
 import numpy as np
 import torch
 
 from ..geometry import Geometry, derive_geometry
 from ..ops.blanker import BlankerTables
+from ..ops.resample import Resampler
 from ..params import Demod, RxParams
-from .chain import (RxOutputs, RxState, RxTables, check_supported,
-                    make_rx_step)
+from .chain import (NBState, RxOutputs, RxState, RxTables, check_supported,
+                    make_multi_rx_step, make_rx_step)
 from .control import WeakSignalControl
-
-_Q12 = "ROADMAP queue 1 item 12"
 
 
 def resolve_device(device) -> torch.device:
@@ -38,17 +49,85 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+class Transport:
+    """File-replay transport: pause, resume and seek take effect between
+    steps (the diskread_pause_flag and seek handling of the reference's
+    file input, menu.c:888-896).  Thread-safe: drive it from another
+    thread while the run() generator is being consumed."""
+
+    def __init__(self):
+        self._running = threading.Event()
+        self._running.set()
+        self._seek_seconds: float | None = None
+        self._lock = threading.Lock()
+
+    def pause(self) -> None:
+        self._running.clear()
+
+    def resume(self) -> None:
+        self._running.set()
+
+    @property
+    def paused(self) -> bool:
+        return not self._running.is_set()
+
+    def seek(self, seconds: float) -> None:
+        """Jump the replay position (forward or back)."""
+        with self._lock:
+            self._seek_seconds = max(0.0, float(seconds))
+
+    def _next_index(self, i: int, step_seconds: float) -> int:
+        self._running.wait()
+        with self._lock:
+            if self._seek_seconds is not None:
+                i = int(self._seek_seconds / step_seconds)
+                self._seek_seconds = None
+        return i
+
+
+def _as_block(block, geo: Geometry, device: torch.device) -> torch.Tensor:
+    """One step of input as a tensor on the device: (samples_per_step, C)
+    complex64, or (2*samples_per_step, C) float32 for real input
+    (timf1_sampling_speed is half the A/D rate then, buf.c:47-51)."""
+    if geo.iq_input:
+        dtype, expect = torch.complex64, geo.samples_per_step
+    else:
+        dtype, expect = torch.float32, 2 * geo.samples_per_step
+    block = torch.as_tensor(block).to(device=device, dtype=dtype)
+    if block.dim() == 1:
+        block = block[:, None]
+    if tuple(block.shape) != (expect, geo.channels):
+        raise ValueError(f"process_block: block {tuple(block.shape)}, "
+                         f"expected {(expect, geo.channels)}")
+    return block
+
+
+def _block_rows(geo: Geometry) -> int:
+    return geo.samples_per_step if geo.iq_input else 2 * geo.samples_per_step
+
+
+def _pulsewidth(geo: Geometry) -> int:
+    if not geo.second_fft_enable:
+        return 2
+    return BlankerTables.create(geo, "cpu")[1]
+
+
 class Receiver:
-    def __init__(self, params: RxParams, *, device,
+    # RF-dial frequency control (the freq_control.c graph: hardware
+    # frequency = passband centre + converter offset, with optional
+    # spectrum inversion).  center_frequency_hz is the recording's RF
+    # centre (fg.passband_center).
+    center_frequency_hz: float = 0.0
+
+    def __init__(self, params: RxParams, *, device="cuda",
                  calibration: dict | None = None,
                  audio_out_rate: float | None = None):
         """device: where tables, state and every step live ("cuda",
-        "cuda:1", "cpu"); there is no default.  calibration: optional
-        {'filtercorr': ...} (linrad_tpu.calibration)."""
-        if audio_out_rate:
-            raise NotImplementedError("audio_out_rate (the audio resampler) "
-                                      "is not ported; see ROADMAP queue 1 "
-                                      "item 13")
+        "cuda:1", "cpu"); the default needs a CUDA device.  calibration:
+        optional {'filtercorr': ..., 'iq_corr': ...}.  audio_out_rate:
+        resample the audio to this rate (the rx_output D/A resampler,
+        rxout.c:266); it must give an integer output count per step
+        (exact rational, ops/resample.py)."""
         check_supported(params)
         self.device = resolve_device(device)
         self.params = params
@@ -59,13 +138,13 @@ class Receiver:
         if params.demod == Demod.COHERENT and params.coherent_mode == 1:
             # signal ear + carrier ear (bg_coherent 1, mix2.c:1843)
             ac = 2 * (1 if params.pol_adapt_enable else self.geo.channels)
-        self.state = RxState.create(self.geo, self.device,
-                                    pol=params.pol_adapt_enable,
-                                    audio_channels=ac)
-        self.blanker_pulsewidth = 2
-        if self.geo.second_fft_enable:
-            _, self.blanker_pulsewidth = BlankerTables.create(self.geo,
-                                                              "cpu")
+        fir = self.tables.mix2.fir
+        self.state = RxState.create(
+            self.geo, self.device, spur=params.spur_enable,
+            pol=params.pol_adapt_enable,
+            fir_len=int(fir.shape[0]) if fir is not None else 0,
+            audio_channels=ac)
+        self.blanker_pulsewidth = _pulsewidth(self.geo)
         self._step = make_rx_step(self.geo, params,
                                   blanker_pulsewidth=self.blanker_pulsewidth,
                                   fractional_tune=True)
@@ -74,16 +153,67 @@ class Receiver:
         self._tune_frac = torch.zeros((), dtype=torch.float32,
                                       device=self.device)
         self._tune_slope = None  # per-frame drift once the AFC locks
+        self._step_seconds = (self.geo.samples_per_step
+                              / self.geo.timf1_sampling_speed)
         self.control = WeakSignalControl(self.geo, params, self.device)
+        # optional audio-rate conversion (rx_output resampler analog)
+        self.audio_out_rate = audio_out_rate
+        self._resampler = None
+        self._resampler_state = None
+        if audio_out_rate:
+            # 32-tap windowed sinc: interpolation and anti-image filtering
+            # in one contraction (the reference needs a separate IIR after
+            # its 4-point interpolator, rxout.c:1165-1210).  Sized with
+            # geo.channels, as the JAX Receiver sizes it.
+            self._resampler = Resampler(
+                self.geo.baseband_sampling_speed, audio_out_rate,
+                self.geo.baseband_samples_per_step, self.geo.channels,
+                self.device, taps=32)
+            self._resampler_state = self._resampler.init_state()
+        # user-extension hooks, the users_*.c plugin surface
+        # (users_init_mode menu.c:693, users_extra_fast wcw.c:931-937,
+        # hware_command users.c:41):
+        #   "init": fn(receiver)              after construction
+        #   "extra_fast": fn(receiver, out)   every step, before control
+        #   "block": fn(receiver, out)        every step, after control
+        #   "tune": fn(receiver, freq_hz)     on retune
+        self.hooks: dict[str, list] = {"init": [], "extra_fast": [],
+                                       "block": [], "tune": []}
+
+    def add_hook(self, event: str, fn) -> None:
+        """Register a user hook (users_*.c extension API analog)."""
+        self.hooks[event].append(fn)
+
+    def _fire(self, event: str, *args) -> None:
+        for fn in self.hooks.get(event, ()):
+            fn(self, *args)
 
     @property
     def afc(self):
         return self.control.afc
 
-    def add_hook(self, event: str, fn) -> None:
-        raise NotImplementedError(f"user hooks are not ported; see {_Q12}")
+    @property
+    def spur_manager(self):
+        return self.control.spur_manager
 
     # ---- tuning -------------------------------------------------------
+    def tune_rf(self, rf_hz: float) -> None:
+        """Tune to an absolute RF (dial) frequency, mapping through the
+        converter offset and the passband direction."""
+        p = self.params
+        base = rf_hz - p.converter_offset_hz - self.center_frequency_hz
+        if p.passband_direction < 0:
+            base = -base
+        self.tune(base)
+
+    @property
+    def tuned_rf_hz(self) -> float:
+        base = self.tuned_hz
+        if self.params.passband_direction < 0:
+            base = -base
+        return (base + self.center_frequency_hz
+                + self.params.converter_offset_hz)
+
     def tune(self, freq_hz: float) -> None:
         """Select the mix1 centre frequency: the nearest fftx bin plus a
         fractional-bin phase ramp put the dial frequency exactly at DC
@@ -97,6 +227,7 @@ class Receiver:
                                       device=self.device)
         self._tune_slope = None
         self.control.on_tune(freq_hz)
+        self._fire("tune", freq_hz)
 
     @property
     def tuned_hz(self) -> float:
@@ -109,35 +240,127 @@ class Receiver:
 
     # ---- streaming ----------------------------------------------------
     def process_block(self, block) -> RxOutputs:
-        """Process one step of input: (samples_per_step, C) complex IQ, a
-        numpy array or a tensor on any device."""
-        block = torch.as_tensor(block).to(device=self.device,
-                                          dtype=torch.complex64)
-        if block.dim() == 1:
-            block = block[:, None]
-        expect = (self.geo.samples_per_step, self.geo.channels)
-        if tuple(block.shape) != expect:
-            raise ValueError(f"Receiver.process_block: block "
-                             f"{tuple(block.shape)}, expected {expect}")
+        """Process one step of input: (samples_per_step, C) complex IQ, or
+        (2*samples_per_step, C) float32 in real-input mode; a numpy array
+        or a tensor on any device."""
+        block = _as_block(block, self.geo, self.device)
         self.state, out = self._step(self.tables, self.state, block,
                                      self._tune_bin, self._tune_frac,
                                      self._tune_slope)
-        self._tune_bin, self._tune_frac, self._tune_slope = \
-            self.control.update(out, self._tune_bin, self._tune_frac,
-                                self._tune_slope)
+        if self._resampler is not None:
+            self._resampler_state, resampled = self._resampler(
+                self._resampler_state, out.audio)
+            out = dataclasses.replace(out, audio=resampled)
+        self._fire("extra_fast", out)
+        (self._tune_bin, self._tune_frac, self._tune_slope,
+         self.state) = self.control.update(
+            out, self._tune_bin, self.state, tune_frac=self._tune_frac,
+            tune_slope=self._tune_slope)
+        self._fire("block", out)
         return out
 
-    def run(self, iq: np.ndarray, *, transport=None, pace: bool = False,
-            watchdog=None, monitor=None):
+    def run(self, iq: np.ndarray, *, transport: Transport | None = None,
+            pace: bool = False, watchdog=None, monitor=None):
         """Stream a recording; yields RxOutputs per step and drops the
-        final partial block (modesub.c:1022)."""
-        if transport is not None or pace or watchdog is not None \
-                or monitor is not None:
-            raise NotImplementedError(f"Transport, real-time pacing, "
-                                      f"watchdog and monitor are not ported; "
-                                      f"see {_Q12}")
+        final partial block (modesub.c:1022).
+
+        transport: optional pause/resume/seek control between steps.
+        pace: replay at the recording's real-time rate, as the reference's
+        file input thread paces to the A/D speed.  watchdog: any object
+        with ``beat(name)``, which gets a "receiver" heartbeat per step;
+        monitor: any object with ``advance(n)``, advanced by each step's
+        raw input sample count (so its rate is the A/D rate
+        geo.rx_ad_speed for IQ and real input alike)."""
         if iq.ndim == 1:
             iq = iq[:, None]
-        s = self.geo.samples_per_step
+        s = _block_rows(self.geo)
+        n_steps = iq.shape[0] // s
+        t0 = time.monotonic()
+        done = 0
+        i = 0
+        while i < n_steps:
+            if transport is not None:
+                i = transport._next_index(i, self._step_seconds)
+                if i >= n_steps:
+                    break
+            if pace:
+                delay = t0 + done * self._step_seconds - time.monotonic()
+                if delay > 0:
+                    time.sleep(delay)
+            out = self.process_block(iq[i * s:(i + 1) * s])
+            if watchdog is not None:
+                watchdog.beat("receiver")
+            if monitor is not None:
+                monitor.advance(s)  # raw input samples (A/D rate)
+            yield out
+            i += 1
+            done += 1
+
+    def process(self, iq: np.ndarray) -> dict[str, np.ndarray]:
+        """Convenience: process a whole recording and concatenate the
+        outputs on the host."""
+        audio, baseb, gains = [], [], []
+        power = None
+        for out in self.run(iq):
+            audio.append(out.audio.cpu().numpy())
+            baseb.append(out.baseb.cpu().numpy())
+            gains.append(out.agc_gain.cpu().numpy())
+            power = out.fft1_avg_power.cpu().numpy()
+        return {
+            "audio": np.concatenate(audio) if audio else np.zeros((0, 1)),
+            "baseb": np.concatenate(baseb) if baseb else np.zeros((0, 1)),
+            "agc_gain": np.concatenate(gains) if gains else np.zeros((0, 1)),
+            "fft1_avg_power": power,
+        }
+
+
+class MultiReceiver:
+    """K independently tuned sub-receivers over ONE wideband front end
+    (the reference's MIX1_NO_OF_CHANNELS=24 mix1 slots and network userx
+    consumers, globdef.h:315, 1282-1294).  The narrowband tail runs once
+    on tensors with a leading K axis, so K sub-receivers cost one set of
+    device operations, not K."""
+
+    def __init__(self, params: RxParams, n_subch: int, *, device="cuda",
+                 calibration: dict | None = None):
+        check_supported(params)
+        self.device = resolve_device(device)
+        self.params = params
+        self.n_subch = n_subch
+        self.geo: Geometry = derive_geometry(params)
+        self.tables = RxTables.create(self.geo, params, self.device,
+                                      calibration)
+        fir = self.tables.mix2.fir
+        fir_len = int(fir.shape[0]) if fir is not None else 0
+        self.state = RxState.create(self.geo, self.device,
+                                    spur=params.spur_enable, fir_len=fir_len)
+        self.nbs = NBState.create_stacked(
+            self.geo, n_subch, self.device, pol=params.pol_adapt_enable,
+            fir_len=fir_len)
+        self.blanker_pulsewidth = _pulsewidth(self.geo)
+        self._step = make_multi_rx_step(
+            self.geo, params, blanker_pulsewidth=self.blanker_pulsewidth)
+        self._tune_bins = torch.zeros(n_subch, dtype=torch.int64,
+                                      device=self.device)
+
+    def tune_subch(self, k: int, freq_hz: float) -> None:
+        """Tune sub-receiver k (quantised to an fftx bin); retuning any
+        sub-receiver changes no shape."""
+        n = self.geo.fftx_size
+        fs = self.geo.timf1_sampling_speed
+        self._tune_bins[k] = int(round(freq_hz / fs * n)) % n
+
+    def process_block(self, block) -> RxOutputs:
+        """One step; outputs.audio/baseb/agc_gain have shape (K, S, C)."""
+        block = _as_block(block, self.geo, self.device)
+        (self.state, self.nbs), out = self._step(
+            self.tables, self.state, self.nbs, block, self._tune_bins)
+        return out
+
+    def run(self, iq: np.ndarray):
+        """Stream a recording; yields RxOutputs per step."""
+        if iq.ndim == 1:
+            iq = iq[:, None]
+        s = _block_rows(self.geo)
         for i in range(iq.shape[0] // s):
             yield self.process_block(iq[i * s:(i + 1) * s])

@@ -53,27 +53,28 @@ def _affine_scan(v: torch.Tensor, a: float) -> torch.Tensor:
     return y.reshape(nb * BLOCK, width)[:n]
 
 
-def one_pole(x: torch.Tensor, a: float, y0: torch.Tensor
+def one_pole(x: torch.Tensor, a: float, y0: torch.Tensor, dim: int = 0
              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """y[t] = a*y[t-1] + (1-a)*x[t] along axis 0 with initial state y0
-    (unity DC gain).
+    """y[t] = a*y[t-1] + (1-a)*x[t] along axis ``dim`` with initial state
+    y0 (unity DC gain).
 
-    x: (n, ...) float32; a a Python float; y0 the carried state
-    (x.shape[1:]).  Returns (y, y_last)."""
+    x: float32 with n samples along ``dim``; a a Python float; y0 the
+    carried state (x's shape without ``dim``).  Returns (y, y_last)."""
     a = float(torch.tensor(a, dtype=torch.float32))  # a rounded to float32
     b = 1.0 - a
+    x = x.movedim(dim, 0)
     shape = x.shape
     bx = (b * x).reshape(shape[0], -1)
     bx = torch.cat([bx[:1] + a * y0.reshape(1, -1), bx[1:]])
     y = _affine_scan(bx, a).reshape(shape)
-    return y, y[-1]
+    return y.movedim(0, dim), y[-1]
 
 
-def decay_max(x: torch.Tensor, decay: float, y0: torch.Tensor
+def decay_max(x: torch.Tensor, decay: float, y0: torch.Tensor, dim: int = 0
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """y[t] = max(decay*y[t-1], x[t]) along axis 0 — peak tracker with
-    exponential release.  x > 0 (envelope magnitudes).  Returns (y,
-    y_last).
+    """y[t] = max(decay*y[t-1], x[t]) along axis ``dim`` — peak tracker
+    with exponential release.  x > 0 (envelope magnitudes); y0 has x's
+    shape without ``dim``.  Returns (y, y_last).
 
     Log domain, as a doubling scan: after the pass with shift s, ly[t] is
     the max over the last 2s samples of lx[j] + ld*(t-j).  Each pass adds
@@ -81,7 +82,7 @@ def decay_max(x: torch.Tensor, decay: float, y0: torch.Tensor
     rounded about log2(n) times; the closed form ld*t + cummax(lx - ld*t)
     would round against values of size |ld|*n instead."""
     eps = 1e-30
-    lx = torch.log(torch.clamp(x, min=eps))
+    lx = torch.log(torch.clamp(x, min=eps)).movedim(dim, 0)
     ld = float(torch.log(torch.tensor(decay, dtype=x.dtype)))
     first = torch.maximum(lx[:1], torch.log(torch.clamp(y0, min=eps)) + ld)
     ly = torch.cat([first, lx[1:]])
@@ -90,14 +91,15 @@ def decay_max(x: torch.Tensor, decay: float, y0: torch.Tensor
         ly = torch.cat([ly[:s], torch.maximum(ly[s:], ly[:-s] + ld * s)])
         s *= 2
     y = torch.exp(ly)
-    return y, y[-1]
+    return y.movedim(0, dim), y[-1]
 
 
-def sliding_max(x: torch.Tensor, window: int) -> torch.Tensor:
-    """Causal sliding-window maximum along axis 0 (AGC hang,
+def sliding_max(x: torch.Tensor, window: int, dim: int = 0) -> torch.Tensor:
+    """Causal sliding-window maximum along axis ``dim`` (AGC hang,
     mix2.c:1569-1620): out[t] = max(x[t-window+1 .. t]), edge clamped."""
     if window <= 1:
         return x
+    x = x.movedim(dim, 0)
     n = x.shape[0]
     xp = torch.cat([x[:1].expand((window - 1,) + tuple(x.shape[1:])), x])
     big_k = (window - 1).bit_length() - 1
@@ -107,4 +109,4 @@ def sliding_max(x: torch.Tensor, window: int) -> torch.Tensor:
         d = torch.maximum(d[s:], d[:-s])
     off = window - (1 << big_k)
     y = torch.maximum(d[off:], d[: d.shape[0] - off]) if off else d
-    return y[-n:]
+    return y[-n:].movedim(0, dim)

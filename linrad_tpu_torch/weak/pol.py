@@ -21,7 +21,7 @@ import torch
 class PolState:
     """Smoothed coherency matrix (2x2 Hermitian)."""
 
-    coherency: torch.Tensor  # (2, 2) complex64
+    coherency: torch.Tensor  # (..., 2, 2) complex64
 
     @classmethod
     def create(cls, device) -> "PolState":
@@ -43,27 +43,35 @@ def update_polarization(state: PolState, baseb2: torch.Tensor,
                         ) -> tuple[PolState, torch.Tensor, torch.Tensor]:
     """One block update: estimate, then project.
 
-    baseb2: (S, 2) complex64.  Returns (state, combined (S,) complex64,
-    weights (2,) complex64)."""
-    r = torch.einsum("si,sj->ij", baseb2, baseb2.conj()) / baseb2.shape[0]
+    baseb2: (..., S, 2) complex64, the state stacked on the same leading
+    axes.  Returns (state, combined (..., S) complex64, weights (..., 2)
+    complex64)."""
+    r = torch.einsum("...si,...sj->...ij", baseb2,
+                     baseb2.conj()) / baseb2.shape[-2]
     coh = (1.0 - alpha) * state.coherency + alpha * r
     # closed-form dominant eigenvector of a 2x2 Hermitian matrix
-    a = coh[0, 0].real
-    d = coh[1, 1].real
-    b = coh[0, 1]
+    a = coh[..., 0, 0].real
+    d = coh[..., 1, 1].real
+    b = coh[..., 0, 1]
     tr = a + d
     det = a * d - b.abs() ** 2
     lam = 0.5 * (tr + torch.sqrt(torch.clamp(tr * tr - 4 * det, min=0.0)))
     # eigenvector for lam: (A - lam I) v = 0 -> v ~ [b, lam - a]
-    v_gen = torch.stack([b, (lam - a).to(coh.dtype)])
-    one = torch.ones((), dtype=coh.dtype, device=coh.device)
-    zero = torch.zeros((), dtype=coh.dtype, device=coh.device)
-    v_axis = torch.where(a >= d, torch.stack([one, zero]),
-                         torch.stack([zero, one]))
-    v = torch.where(b.abs() > 1e-12 * torch.maximum(a, d), v_gen, v_axis)
-    v = v / torch.clamp(torch.linalg.vector_norm(v), min=1e-20)
-    combined = baseb2 @ v.conj()
-    return PolState(coherency=coh), combined, v
+    v_gen = torch.stack([b, (lam - a).to(coh.dtype)], dim=-1)
+    # [1, 0] made on the device (no host-to-device copy inside a step)
+    x_axis = (torch.arange(2, device=coh.device) == 0).to(coh.dtype)
+    v_axis = torch.where((a >= d)[..., None], x_axis, x_axis.flip(0))
+    v = torch.where((b.abs() > 1e-12 * torch.maximum(a, d))[..., None],
+                    v_gen, v_axis)
+    v = v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True),
+                        min=1e-20)
+    return PolState(coherency=coh), project(baseb2, v), v
+
+
+def project(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x2 (..., S, 2) onto the weights w (..., 2): sum_c x2[..., c] *
+    conj(w[c]), (..., S)."""
+    return (x2 * w.conj()[..., None, :]).sum(-1)
 
 
 def pol_info(state: PolState) -> PolInfo:

@@ -25,8 +25,10 @@ import torch
 from __graft_entry__ import _flagship_params
 from linrad_tpu.pipeline.receiver import Receiver as JaxReceiver
 from linrad_tpu_torch import Demod, InputMode, convert
+from linrad_tpu_torch import derive_geometry as t_derive_geometry
 from linrad_tpu_torch.pipeline.chain import make_rx_step
-from linrad_tpu_torch.pipeline.receiver import Receiver
+from linrad_tpu_torch.pipeline.receiver import (MultiReceiver, Receiver,
+                                                Transport)
 
 STEPS = 6
 TUNE_HZ = 12_345.6
@@ -167,26 +169,27 @@ def test_receiver_rejects_bad_block():
 
 
 def test_cuda_device_requires_cuda():
+    """device="cuda", named or by default, raises where there is no CUDA
+    device: no receiver carries on on the CPU by itself."""
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA")
     with pytest.raises(RuntimeError, match="cuda"):
         Receiver(T_CONFIGS["pallas"], device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        Receiver(T_CONFIGS["pallas"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        MultiReceiver(T_CONFIGS["pallas"], 2)
 
 
 REFUSED_PARAMS = {
-    "real-input": dict(input_mode=InputMode.REAL),
-    "mixer-mode-2": dict(mixer_mode=2),
-    "squelch": dict(squelch_enable=True),
-    "expander": dict(expander_exponent=2.0),
     "blanker-rounds": dict(blanker_rounds=2),
     "mxu": dict(fft1_variant="mxu"),
     "mxu-bf16": dict(fft1_variant="mxu_bf16"),
-    "spur": dict(spur_enable=True),
     "shards": dict(shards=2),
 }
 
-# refused before the EME path was ported; tests/test_torch_eme.py holds
-# them against JAX
+# refused before they were ported; tests/test_torch_eme.py and
+# tests/test_torch_options.py hold them against JAX
 PORTED_PARAMS = {
     "two-channel": dict(rx_rf_channels=2),
     "demod-am": dict(demod=Demod.AM),
@@ -195,6 +198,11 @@ PORTED_PARAMS = {
     "demod-none": dict(demod=Demod.NONE),
     "afc": dict(afc_enable=True),
     "pol-adapt": dict(rx_rf_channels=2, pol_adapt_enable=True),
+    "real-input": dict(input_mode=InputMode.REAL),
+    "mixer-mode-2": dict(mixer_mode=2),
+    "squelch": dict(squelch_enable=True),
+    "expander": dict(expander_exponent=2.0),
+    "spur": dict(spur_enable=True),
 }
 
 
@@ -205,6 +213,8 @@ def test_refused_configuration(name):
         Receiver(p, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_rx_step(None, p)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        MultiReceiver(p, 2, device="cpu")
 
 
 @pytest.mark.parametrize("name", list(PORTED_PARAMS))
@@ -217,13 +227,18 @@ def test_ported_configuration(name):
     rx.tune(TUNE_HZ)
     iq = np.repeat(_input(rx.geo)[: 5 * rx.geo.samples_per_step],
                    rx.geo.channels, axis=1)
+    if not rx.geo.iq_input:
+        # 2S real samples per step at twice the rate: the same spectrum
+        iq = np.repeat(iq.real, 2, axis=0)
     outs = list(rx.run(iq))
+    assert len(outs) == 5
     audio_c = 1 if p.pol_adapt_enable else rx.geo.channels
     for out in outs:
         assert out.audio.shape == (rx.geo.baseband_samples_per_step, audio_c)
         assert torch.isfinite(out.audio).all()
     assert float(torch.cat([o.audio for o in outs]).abs().max()) > 0
     assert (rx.afc is not None) == p.afc_enable
+    assert (rx.spur_manager is not None) == p.spur_enable
     if p.afc_enable:
         assert rx.control.host_reads == 5
 
@@ -245,24 +260,60 @@ def test_tune_slope_step():
     assert torch.isfinite(sloped.audio).all()
 
 
+class _Beat:
+    """Stands in for runtime.watchdog's Watchdog and RealTimeMonitor."""
+
+    def __init__(self):
+        self.calls = []
+
+    def beat(self, name):
+        self.calls.append(name)
+
+    def advance(self, n):
+        self.calls.append(n)
+
+
 @pytest.mark.parametrize("name", ["audio_out_rate", "iq_corr", "transport",
                                   "pace", "watchdog", "monitor", "hook"])
 def test_refused_host_feature(name):
+    """The host features the port used to refuse, each run for 3 steps."""
     p = T_CONFIGS["xla"]
+    kw = {}
     if name == "audio_out_rate":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Receiver(p, device="cpu", audio_out_rate=8000.0)
-        return
+        kw["audio_out_rate"] = 2.0 * t_derive_geometry(
+            p).baseband_sampling_speed
     if name == "iq_corr":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Receiver(p, device="cpu", calibration={
-                "iq_corr": np.zeros(256, np.complex64)})
-        return
-    rx = Receiver(p, device="cpu")
-    iq = np.zeros((rx.geo.samples_per_step, 1), np.complex64)
+        kw["calibration"] = {"iq_corr": np.full(256, 0.01 + 0.02j,
+                                                np.complex64)}
+    rx = Receiver(p, device="cpu", **kw)
+    rx.tune(TUNE_HZ)
+    s = rx.geo.samples_per_step
+    iq = _input(rx.geo)[: 3 * s]
+    fired = []
+    run_kw = {}
+    stub = _Beat()
     if name == "hook":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            rx.add_hook("block", lambda *a: None)
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            next(rx.run(iq, **{name: object()}))
+        rx.add_hook("block", lambda r, out: fired.append(out))
+    elif name == "transport":
+        run_kw["transport"] = Transport()
+    elif name == "pace":
+        run_kw["pace"] = True
+    elif name in ("watchdog", "monitor"):
+        run_kw[name] = stub
+    outs = list(rx.run(iq, **run_kw))
+    assert len(outs) == 3
+    bb = rx.geo.baseband_samples_per_step
+    rows = 2 * bb if name == "audio_out_rate" else bb
+    assert all(o.audio.shape == (rows, 1) for o in outs)
+    assert all(torch.isfinite(o.audio).all() for o in outs)
+    if name == "iq_corr":
+        plain = Receiver(p, device="cpu")
+        plain.tune(TUNE_HZ)
+        ref = next(plain.run(iq))
+        assert not torch.equal(ref.fft1_power, outs[0].fft1_power)
+    if name == "hook":
+        assert fired == outs
+    if name == "watchdog":
+        assert stub.calls == ["receiver"] * 3
+    if name == "monitor":
+        assert stub.calls == [s] * 3

@@ -30,7 +30,9 @@ MODULES = [
     "linrad_tpu_torch.ops.fused_fft1",
     "linrad_tpu_torch.ops.mix1",
     "linrad_tpu_torch.ops.mix2",
+    "linrad_tpu_torch.ops.resample",
     "linrad_tpu_torch.ops.sellim",
+    "linrad_tpu_torch.ops.squelch",
     "linrad_tpu_torch.ops.timf2",
     "linrad_tpu_torch.ops.windows",
     "linrad_tpu_torch.pipeline.chain",
@@ -42,6 +44,7 @@ MODULES = [
     "linrad_tpu_torch.utils.timing",
     "linrad_tpu_torch.weak.afc",
     "linrad_tpu_torch.weak.pol",
+    "linrad_tpu_torch.weak.spur",
 ]
 
 # printed by the child: the loaded modules named jax, jax.*, linrad_tpu or
@@ -137,6 +140,48 @@ def test_cpu_eme_receiver_does_not_import_jax():
         "assert len(outs) == 5 and rx.control.host_reads == 5\n"
         "assert outs[-1].audio.shape == "
         "(rx.geo.baseband_samples_per_step, 1)\n"
+        + FOREIGN)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]", proc.stdout
+
+
+def test_cpu_multi_receiver_does_not_import_jax():
+    """A tiny MultiReceiver with K = 3 sub-receivers, spur cancellation,
+    squelch and expander runs 4 steps with the spur manager scanning every
+    second one, then a real-input Receiver on mixer mode 2 with the audio
+    resampler runs 2, all jax-free."""
+    proc = _run(
+        "import sys, dataclasses, numpy as np\n"
+        "from linrad_tpu_torch import InputMode, flagship_params\n"
+        "from linrad_tpu_torch.pipeline.control import WeakSignalControl\n"
+        "from linrad_tpu_torch.pipeline.receiver import MultiReceiver, "
+        "Receiver\n"
+        "p = dataclasses.replace(flagship_params(tiny=True), "
+        "spur_enable=True, squelch_enable=True, expander_exponent=2.0)\n"
+        "rx = MultiReceiver(p, 3, device='cpu')\n"
+        "for k in range(3):\n"
+        "    rx.tune_subch(k, 1000.0 + 4000.0 * k)\n"
+        "ctl = WeakSignalControl(rx.geo, p, 'cpu')\n"
+        "ctl.spur_scan_interval = 2\n"
+        "rng = np.random.default_rng(0)\n"
+        "n = 4 * rx.geo.samples_per_step\n"
+        "t = np.arange(n) / rx.geo.timf1_sampling_speed\n"
+        "iq = (rng.normal(size=n) + 1j * rng.normal(size=n)"
+        " + 100.0 * np.exp(2j * np.pi * -20000.0 * t)).astype(np.complex64)\n"
+        "for out in rx.run(iq):\n"
+        "    _bins, rx.state = ctl.update(out, rx._tune_bins, rx.state)\n"
+        "assert out.audio.shape == "
+        "(3, rx.geo.baseband_samples_per_step, 1)\n"
+        "assert int((rx.state.spur.bins >= 0).sum()) >= 1\n"
+        "assert ctl.host_reads == 12\n"
+        "p = dataclasses.replace(flagship_params(tiny=True), "
+        "input_mode=InputMode.REAL, mixer_mode=2)\n"
+        "rx = Receiver(p, device='cpu', audio_out_rate=2 * 3000.0)\n"
+        "x = rng.normal(size=4 * rx.geo.samples_per_step)"
+        ".astype(np.float32)\n"
+        "outs = list(rx.run(x))\n"
+        "assert len(outs) == 2 and outs[-1].audio.shape == "
+        "(2 * rx.geo.baseband_samples_per_step, 1)\n"
         + FOREIGN)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]", proc.stdout

@@ -472,10 +472,24 @@ def test_bfo_ssb():
 
 
 def test_unported_fft1_input_refused():
+    """Real input, which fft1_step used to refuse, now runs: 2N real
+    samples per frame give an N-bin spectrum, and "pallas" takes the
+    torch.fft path without launching the fused kernel."""
     p = convert.params_from_jax(dataclasses.replace(
         _flagship_params(tiny=True), input_mode=0))
     geo = t_derive_geometry(p)
     from linrad_tpu_torch.ops import fft1 as tfft1
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tfft1.fft1_step(geo, None, None, None, 8)
+    from linrad_tpu_torch.ops.fused_fft1 import fused_fft1
+    tables = tfft1.FFT1Tables.create(geo, "cpu")
+    state = tfft1.FFT1State.create(geo, "cpu")
+    assert tables.window.shape == (2 * geo.fft1_size,)
+    assert state.tail.dtype == torch.float32
+    block = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(2 * geo.samples_per_step, 1)).astype(np.float32))
+    before = fused_fft1.launches
+    _st, spec, power = tfft1.fft1_step(geo, tables, state, block, 8,
+                                       variant="pallas")
+    assert fused_fft1.launches == before
+    assert spec.shape == (geo.fft1_frames_per_step, geo.fft1_size, 1)
+    assert spec.dtype == torch.complex64 and float(power.sum()) > 0
     assert isinstance(p, TRxParams)
