@@ -71,12 +71,46 @@ Phases, in order; any failure raises and the script exits non-zero:
             steps of IQ input with an I/Q correction table, no launch
             either.
 
+10. batch   BatchRunner(k_steps=8) on the default device over 16 steps of
+            the flagship input: the step captured into a CUDA graph and
+            replayed, against the same step run eagerly in a loop (audio
+            and baseb bit-equal); 16 kernel launches, counted per replay;
+            a fresh runner gives the same bits; a torch.fft ("xla") runner
+            within phase 4's bars; a call makes no host synchronisation
+            between its steps.  Then times in turns (eager, graph, graph,
+            eager): ms per step and complex Msamples/s for whole calls,
+            the replays alone, capture seconds and the graph pool's bytes,
+            and from torch.profiler over one call what the host enqueues,
+            that the device ran the kernel once per replay, and the
+            device time beside the wall time.
+11. checkpoint  the flagship Receiver: 4 steps, save, load into a new
+            Receiver, 4 more; every output field of steps 5-8 equals an
+            uninterrupted run's bit for bit.  The same on the EME
+            configuration, saved once the AFC has its signal: AFC status,
+            frame bins and tune_slope continue exactly.
+12. file    8 flagship steps written to a 16-bit IQ WAV with an rcvr
+            chunk and replayed with Receiver.run_file through the native
+            prefetcher (the C++ library must have loaded): the centre
+            frequency read back, the audio equal to run() on the rounded
+            samples bit for bit, 8 kernel launches.
+13. latency measure_latency on the bounded-latency configuration, without
+            and with the second FFT, the step as a CUDA graph: prints the
+            budget; pipeline_ms must equal the analytic value.
+14. radar, wfm  frame_pulse_stats, a RadarTracker's lock and
+            wfm_stereo_decode on the card against the same on the CPU
+            (peak bins and every decision exact, floats 1e-5), and the
+            stereo round trip (separation over 25 dB, pilot found).
+
 ``python3 chip_smoke.py --stages`` runs phases 1 and 2 and then, instead
 of the smoke run, a diagnostic: the synced wall time of every stage of
-the multi-receiver step at K = 24 and K = 1.
+the multi-receiver step at K = 24 and K = 1.  ``--regimes`` likewise
+prints the graphed flagship step's time at points of one process's life
+(a fresh runner, after the profiler's first start, after another capture,
+after an eager loop).
 
 It prints a JSON line describing every kernel of the paths (launches
-summed over the flagship, EME, multi-receiver and real-input runs; times
+summed over the flagship, EME, multi-receiver, real-input, batch,
+checkpoint and file runs, each counted from zero; times
 at the flagship's shape, and per shape under "by_shape"), then, as the
 last line, {"ok": true, "device": {...}}.
 """
@@ -85,8 +119,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -142,6 +178,10 @@ MULTI_SPUR_HZ = 30_000.0
 MULTI_SPUR_AMPLITUDE = 4.5
 BFO_HZ = 800.0
 REAL_STEPS = 6
+# the host layer
+BATCH_K = 8
+BATCH_STEPS = 16
+FILE_STEPS = 8
 
 
 def max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1055,6 +1095,533 @@ def phase_real(dev: dict, device="cuda", tiny: bool = False) -> int:
     return real_launches + corr_launches
 
 
+# ---- the host layer: phases 10 to 14 -----------------------------------
+
+def eager_batch(p, tune_hz: float, iq: np.ndarray, device) -> dict:
+    """What BatchRunner computes, by the bare step run eagerly in a loop:
+    the same tables, state and tuning, no fractional ramp, one block at a
+    time copied to the device, audio and baseb brought back at the end."""
+    from linrad_tpu_torch import derive_geometry
+    from linrad_tpu_torch.pipeline.chain import (RxState, RxTables,
+                                                 make_rx_step)
+    from linrad_tpu_torch.pipeline.receiver import _pulsewidth
+    geo = derive_geometry(p)
+    tables = RxTables.create(geo, p, device)
+    state = RxState.create(geo, device)
+    step = make_rx_step(geo, p, blanker_pulsewidth=_pulsewidth(geo))
+    n = geo.fftx_size
+    tune = torch.tensor(int(round(tune_hz / geo.timf1_sampling_speed * n))
+                        % n, dtype=torch.int64, device=device)
+    s = geo.samples_per_step
+    audio, baseb = [], []
+    for i in range(iq.shape[0] // s):
+        block = torch.from_numpy(iq[i * s:(i + 1) * s]).to(device)
+        state, out = step(tables, state, block, tune)
+        audio.append(out.audio)
+        baseb.append(out.baseb)
+    return {"audio": torch.cat(audio).cpu().numpy(),
+            "baseb": torch.cat(baseb).cpu().numpy()}
+
+
+def profile_call(fn) -> dict:
+    """One call of fn under torch.profiler.  "busy_ms": the device's busy
+    time summed over every kernel and copy traced; "wall_ms": the time
+    between CUDA events around the call, under the profiler; "ops": the
+    device kernels and copies; "by_name": (name, ms, count) of each, most
+    device time first; "host": what the call asks of the CUDA runtime, by
+    name (graph launches, kernel launches, copies), and under "aten" its
+    aten operations."""
+    from torch.profiler import ProfilerActivity, profile
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    busy_us, ops, by_name, host = 0.0, 0, [], {"aten": 0}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            busy_us += us
+            ops += e.count
+            by_name.append((e.key, round(us / 1e3, 3), e.count))
+        elif e.key.startswith("aten::"):
+            host["aten"] += e.count
+        elif e.key.startswith(("cudaGraphLaunch", "cudaLaunchKernel",
+                               "cudaMemcpy", "cuLaunchKernel")):
+            host[e.key] = host.get(e.key, 0) + e.count
+    by_name.sort(key=lambda kv: -kv[1])
+    return {"busy_ms": busy_us / 1e3, "wall_ms": start.elapsed_time(end),
+            "ops": ops, "by_name": by_name, "host": host}
+
+
+def graph_pool_bytes(graph) -> int:
+    """Bytes of the allocator's segments that belong to the private memory
+    pool of a captured torch.cuda.CUDAGraph."""
+    pool = tuple(graph.pool())
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) == pool)
+
+
+def phase_batch(dev: dict, device=None, tiny: bool = False) -> int:
+    """K steps per call from a CUDA graph.  Returns the kernel's launch
+    count over the runner's BATCH_STEPS steps, as the runner counts it
+    (launches per replay times replays).  ``device="cpu"`` with
+    ``tiny=True`` rehearses the control flow."""
+    from linrad_tpu_torch import derive_geometry, flagship_params
+    from linrad_tpu_torch.ops.fused_fft1 import fused_fft1
+    from linrad_tpu_torch.pipeline.batch import BatchRunner
+    on_card = device is None or torch.device(device).type == "cuda"
+    kw = {} if device is None else {"device": device}
+    p = flagship_params(tiny=tiny, fft1_variant="pallas")
+    geo = derive_geometry(p)
+    iq = make_input(geo, seed=2, steps=BATCH_STEPS)
+    s = geo.samples_per_step
+
+    def runner(params=p):
+        br = BatchRunner(params, k_steps=BATCH_K, **kw)
+        br.tune(TUNE_HZ)
+        return br
+
+    br = runner()
+    fused_fft1.launches = 0
+    got = br.process(iq)
+    g = br.graphed
+    pool = graph_pool_bytes(g.graph) if on_card else 0
+    print(f"batch path: BatchRunner k_steps={BATCH_K} on {br.device}, "
+          f"{BATCH_STEPS} steps of {s} samples in {BATCH_STEPS // BATCH_K} "
+          f"calls; {g.replays} replays of one captured step, "
+          f"{br.kernels_per_replay} fused_fft1 node(s) recorded in it, "
+          f"launches {br.kernel_launches} (the wrapper was called "
+          f"{fused_fft1.launches} times); capture {g.capture_seconds:.3f} s, "
+          f"graph pool {pool} bytes [{dev['smi']}]")
+    if on_card and (br.device.type != "cuda" or g.graph is None):
+        raise AssertionError("batch: the default device is not the card, or "
+                             "the step was not captured")
+    if on_card and (br.kernel_launches != BATCH_STEPS
+                    or fused_fft1.launches != 0 or pool <= 0):
+        raise AssertionError(f"batch: expected {BATCH_STEPS} kernel "
+                             f"launches, all from replays, and a graph pool")
+    bb = geo.baseband_samples_per_step
+    for f, dtype in (("audio", np.float32), ("baseb", np.complex64)):
+        if got[f].shape != (BATCH_STEPS * bb, 1) or got[f].dtype != dtype \
+                or not np.isfinite(got[f]).all():
+            raise AssertionError(f"batch: {f} has the wrong shape or type, "
+                                 f"or is not finite")
+    peak = audio_peak_hz(torch.from_numpy(got["audio"][:, 0]),
+                         geo.baseband_sampling_speed)
+    print(f"batch: audio spectrum peak at {peak:.1f} Hz (BFO {BFO_HZ} Hz)")
+    if not tiny and abs(peak - BFO_HZ) > 20.0:
+        raise AssertionError("batch: the tone is not at the BFO pitch")
+
+    ref = eager_batch(p, TUNE_HZ, iq, br.device)
+    again = runner().process(iq)
+    for label, other in (("the eager loop of the same step", ref),
+                         ("a fresh runner", again)):
+        for f in ("audio", "baseb"):
+            if not np.array_equal(got[f], other[f]):
+                diff = np.abs(got[f] - other[f]).max()
+                raise AssertionError(f"batch: {f} differs from {label} "
+                                     f"(max abs {diff})")
+        print(f"batch: audio and baseb bit-equal to {label}")
+
+    xla = runner(flagship_params(tiny=tiny, fft1_variant="xla")).process(iq)
+    for f, bar in (("audio", CHAIN_TOL["audio"]), ("baseb", CHAIN_TOL_OTHER)):
+        first = max_rel(torch.from_numpy(got[f][:bb]),
+                        torch.from_numpy(xla[f][:bb]))
+        rest = max_rel(torch.from_numpy(got[f][bb:]),
+                       torch.from_numpy(xla[f][bb:]))
+        bar0 = START_AUDIO_TOL if f == "audio" else bar
+        print(f"batch: pallas vs xla runner, {f}: step 0 max_rel "
+              f"{first:.3e} (bar {bar0}), steps 1-{BATCH_STEPS - 1} "
+              f"{rest:.3e} (bar {bar})")
+        if tiny:
+            continue    # the bars are the full size's
+        if first > bar0 or rest > bar:
+            raise AssertionError(f"batch: {f} of the xla runner is outside "
+                                 f"its bar")
+    launches = br.kernel_launches
+    if on_card:
+        phase_batch_timing(dev, p, iq, br)
+    return launches
+
+
+def phase_batch_timing(dev: dict, p, iq: np.ndarray, br) -> None:
+    """One call under torch.profiler (what the host enqueues, what the
+    device runs); the graphed and the eager step in turns, whole calls
+    between CUDA events; the replays alone."""
+    from linrad_tpu_torch.ops.fused_fft1 import fused_fft1
+    s = br.geo.samples_per_step
+    steps = iq.shape[0] // s
+    counted = fused_fft1.launches
+
+    # a call's K steps make no host synchronisation
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        br._run_call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+    def timed(fn) -> float:
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    fns = {"eager": lambda: eager_batch(p, TUNE_HZ, iq, br.device),
+           "graph": lambda: br.process(iq)}
+    for fn in fns.values():                     # warm-up of both paths
+        fn()
+    times = {}
+    for label in ("eager", "graph", "graph", "eager"):
+        t0 = time.perf_counter()
+        ms = timed(fns[label]) / steps
+        host = 1e3 * (time.perf_counter() - t0) / steps
+        times.setdefault(label, []).append(ms)
+        print(f"batch timing {label}: {ms:.3f} ms/step (CUDA events around "
+              f"{steps} steps, the copies in and out included), host "
+              f"{host:.3f} ms/step, {s / ms / 1e3:.3f} complex Msamples/s "
+              f"[{dev['smi']}]")
+    ratio = sum(times["eager"]) / sum(times["graph"])
+    print(f"batch timing: eager / graph = {ratio:.2f}")
+
+    def replays(when: str) -> float:
+        ms = [timed(br._run_call) for _ in range(3)]
+        print(f"batch timing graph, the replays alone, {when}: "
+              f"{min(ms) / BATCH_K:.3f} ms/step (best of 3 calls of "
+              f"{BATCH_K} steps; all {[round(m / BATCH_K, 3) for m in ms]}),"
+              f" {s * BATCH_K / min(ms) / 1e3:.3f} complex Msamples/s "
+              f"[{dev['smi']}]")
+        return min(ms)
+
+    replays("before the profiler's pass")
+    prof = profile_call(br._run_call)
+    replay_ms = replays("after it")
+    host = prof["host"]
+    enqueued = sum(n for k, n in host.items() if k != "aten")
+    print(f"batch: the {BATCH_K} steps of a call make no host "
+          f"synchronisation; the host enqueues {enqueued} operations "
+          f"({host}; aten operations, views included: "
+          f"{host['aten'] / BATCH_K:.1f} per step; the eager step makes "
+          f"thousands)")
+    if enqueued > 4 * BATCH_K or host.get("cudaGraphLaunch") != BATCH_K:
+        raise AssertionError("batch: a call enqueues more than a small "
+                             "multiple of K operations")
+    kernels = sum(n for name, _, n in prof["by_name"]
+                  if "fused_fft1_kernel" in name)
+    print(f"batch profile: the device ran fused_fft1_kernel {kernels} times "
+          f"in a call of {BATCH_K} replays; the runner counts "
+          f"{br.kernels_per_replay} per replay")
+    if kernels != BATCH_K * br.kernels_per_replay or kernels != BATCH_K:
+        raise AssertionError("batch: the device did not run the kernel once "
+                             "per replay")
+    busy, wall = prof["busy_ms"], prof["wall_ms"]
+    # the device's time is taken under the profiler and the replays' wall
+    # time without it, in the calls just after: their ratio is printed as
+    # it comes out, and may pass 1
+    print(f"batch profile graph: one call of {BATCH_K} steps: device time "
+          f"{busy / BATCH_K:.3f} ms/step in {prof['ops'] // BATCH_K} kernels "
+          f"and copies per step; wall under the profiler "
+          f"{wall / BATCH_K:.3f} ms/step (device time / wall "
+          f"{busy / wall:.4f}), without it {replay_ms / BATCH_K:.3f} ms/step "
+          f"(device time / wall {busy / replay_ms:.4f}) (torch.profiler) "
+          f"[{dev['smi']}]")
+    if busy <= 0:
+        raise AssertionError("batch: torch.profiler saw no device time")
+    for name, ms, n in prof["by_name"][:5]:
+        print(f"batch profile graph:   {ms / BATCH_K:.3f} ms/step in "
+              f"{n // BATCH_K} launches per step: {name[:120]}")
+    # the launches made for timing are not the main path's
+    fused_fft1.launches = counted
+
+
+def replay_regimes(dev: dict) -> None:
+    """A diagnostic: the graphed flagship step's time at points of one
+    process's life.  The same graph on the same data has been seen to
+    replay at two speeds about 20% apart, and to change between them after
+    another capture, after a pass of torch.profiler, and after an eager
+    loop; not after memory taken with cudaMalloc or freed with cudaFree.
+    Prints ms per step of whole process() calls of BATCH_STEPS steps at
+    each point, and the card's clocks."""
+    from linrad_tpu_torch import derive_geometry, flagship_params
+    from linrad_tpu_torch.pipeline.batch import BatchRunner
+    p = flagship_params(fft1_variant="pallas")
+    geo = derive_geometry(p)
+    iq = make_input(geo, seed=2, steps=BATCH_STEPS)
+
+    def runner():
+        br = BatchRunner(p, k_steps=BATCH_K)
+        br.tune(TUNE_HZ)
+        return br
+
+    def loop(br, label: str, n: int = 8) -> None:
+        ms = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            br.process(iq)
+            ms.append(round(1e3 * (time.perf_counter() - t0) / BATCH_STEPS,
+                            2))
+        clocks = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,pstate,"
+             "clocks_throttle_reasons.active,power.draw",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip()
+        print(f"regimes, {label}: ms/step of {n} process() calls {ms} "
+              f"({clocks}) [{dev['smi']}]", flush=True)
+
+    first = runner()
+    loop(first, "a fresh runner, no profiler started yet", 16)
+    big = torch.empty(1 << 28, dtype=torch.uint8, device=first.device)
+    loop(first, "after a new cudaMalloc of 256 MiB")
+    del big
+    torch.cuda.empty_cache()
+    loop(first, "after its cudaFree")
+    profile_call(first._run_call)
+    loop(first, "after torch.profiler's first pass")
+    second = runner()
+    loop(second, "a second runner, just captured")
+    loop(first, "the first runner after that capture")
+    profile_call(first._run_call)
+    loop(first, "after another pass of the profiler")
+    eager_batch(p, TUNE_HZ, iq, first.device)
+    loop(first, "after an eager loop of 16 steps", 16)
+
+
+def equal_outputs(a, b, label: str) -> None:
+    """Every tensor field of two RxOutputs equal bit for bit."""
+    for f in dataclasses.fields(a):
+        va, vb = getattr(a, f.name), getattr(b, f.name)
+        if (va is None) != (vb is None) or (
+                va is not None and not torch.equal(va, vb)):
+            raise AssertionError(f"{label}: {f.name} differs")
+
+
+def phase_checkpoint(dev: dict, device="cuda", tiny: bool = False,
+                     **eme_overrides) -> int:
+    """Save and resume, on the flagship and across the AFC's lock on the
+    EME configuration.  Returns the kernel's launch count."""
+    from linrad_tpu_torch import derive_geometry, flagship_params
+    from linrad_tpu_torch.ops.fused_fft1 import fused_fft1
+    from linrad_tpu_torch.pipeline.checkpoint import (load_receiver,
+                                                      save_receiver)
+    from linrad_tpu_torch.pipeline.receiver import Receiver
+    fused_fft1.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        p = flagship_params(tiny=tiny, fft1_variant="pallas")
+        rx = Receiver(p, device=device)
+        rx.tune(TUNE_HZ)
+        s = rx.geo.samples_per_step
+        iq = make_input(rx.geo, seed=4, steps=8)
+        straight = list(rx.run(iq))
+        rx1 = Receiver(p, device=device)
+        rx1.tune(TUNE_HZ)
+        for _ in rx1.run(iq[:4 * s]):
+            pass
+        path = os.path.join(tmp, "flagship.npz")
+        save_receiver(path, rx1)
+        rx2 = load_receiver(path, device=device)
+        for i, out in enumerate(rx2.run(iq[4 * s:])):
+            equal_outputs(out, straight[4 + i], f"checkpoint step {5 + i}")
+        print(f"checkpoint: flagship, saved after 4 steps "
+              f"({os.path.getsize(path)} bytes), resumed on {rx2.device}: "
+              f"every output field of steps 5-8 bit-equal to the "
+              f"uninterrupted run")
+
+        pe = eme_params("pallas", **eme_overrides)
+        iq = make_eme_input(derive_geometry(pe), EME_STEPS)
+        rx = Receiver(pe, device=device)
+        rx.tune(EME_TUNE_HZ)
+        s = rx.geo.samples_per_step
+        straight, track, saved_at, rx2 = [], [], None, None
+        resumed = []
+        for i in range(EME_STEPS):
+            block = iq[i * s:(i + 1) * s]
+            straight.append(rx.process_block(block))
+            track.append(rx.afc.status)
+            if rx2 is not None:
+                out = rx2.process_block(block)
+                equal_outputs(out, straight[-1], f"checkpoint eme step {i}")
+                if (rx2.afc.status != rx.afc.status
+                        or rx2.afc.freq_hz != rx.afc.freq_hz
+                        or not torch.equal(rx2._tune_bin, rx._tune_bin)
+                        or not torch.equal(rx2._tune_frac, rx._tune_frac)
+                        or not torch.equal(rx2._tune_slope, rx._tune_slope)):
+                    raise AssertionError(f"checkpoint eme step {i}: the AFC "
+                                         f"or the tuning went another way")
+                resumed.append(rx2.afc.status)
+            elif rx.afc.status in (2, 3) and i < EME_STEPS - 3:
+                path = os.path.join(tmp, "eme.npz")
+                save_receiver(path, rx)
+                rx2 = load_receiver(path, device=device)
+                saved_at = i
+        if rx2 is None or len(resumed) < 3 or 3 not in track:
+            raise AssertionError(f"checkpoint: the AFC did not lock in time "
+                                 f"to resume: {track}")
+        print(f"checkpoint: eme, AFC status per step {track}, saved after "
+              f"step {saved_at} (status {track[saved_at]}), resumed over "
+              f"steps {saved_at + 1}-{EME_STEPS - 1} (status {resumed}): "
+              f"outputs, AFC status and frequency, frame bins, tune_frac "
+              f"and tune_slope equal in every step")
+    return fused_fft1.launches
+
+
+def phase_file(dev: dict, device="cuda", tiny: bool = False) -> int:
+    """WAV replay through the native prefetcher.  Returns the kernel's
+    launch count over the replay's FILE_STEPS steps."""
+    from linrad_tpu_torch import derive_geometry, flagship_params, runtime
+    from linrad_tpu_torch.io.wav import RcvrChunk, write_wav
+    from linrad_tpu_torch.ops.fused_fft1 import fused_fft1
+    from linrad_tpu_torch.pipeline.receiver import Receiver
+    if runtime.get_lib() is None:
+        raise AssertionError("file: the native runtime library did not "
+                             "build or load (g++)")
+    print(f"file: native runtime {runtime._lib_path()}")
+    p = flagship_params(tiny=tiny, fft1_variant="pallas")
+    geo = derive_geometry(p)
+    iq = make_input(geo, seed=7, steps=FILE_STEPS)[:, 0]
+    iq = (np.round(iq.real) + 1j * np.round(iq.imag)).astype(np.complex64)
+    if np.abs(iq.real).max() > 32767 or np.abs(iq.imag).max() > 32767:
+        raise AssertionError("file: the input does not fit 16 bits")
+    rx_mem = Receiver(p, device=device)
+    rx_mem.tune(TUNE_HZ)
+    mem = torch.cat([o.audio for o in rx_mem.run(iq)])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "flagship.wav")
+        write_wav(path, iq[:, None], geo.rx_ad_speed, bits=16,
+                  rcvr=RcvrChunk(center_frequency_hz=14_100_000))
+        size = os.path.getsize(path)
+        rx = Receiver(p, device=device)
+        rx.tune(TUNE_HZ)
+        fused_fft1.launches = 0
+        t0 = time.perf_counter()
+        outs = list(rx.run_file(path))
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = fused_fft1.launches
+    audio = torch.cat([o.audio for o in outs])
+    print(f"file: {len(outs)} steps replayed from a {size}-byte 16-bit IQ "
+          f"WAV in {seconds:.3f} s, fused_fft1 launches {launches}, "
+          f"center_frequency_hz {rx.center_frequency_hz}")
+    if len(outs) != FILE_STEPS or rx.center_frequency_hz != 14_100_000.0:
+        raise AssertionError("file: steps or centre frequency")
+    if torch.device(device).type == "cuda" and launches != FILE_STEPS:
+        raise AssertionError(f"file: expected {FILE_STEPS} kernel launches")
+    if not torch.equal(audio, mem) or not torch.isfinite(audio).all():
+        raise AssertionError("file: the audio differs from run() on the "
+                             "same samples")
+    rx.tune_rf(14_100_000.0 + TUNE_HZ)
+    if abs(rx.tuned_hz - TUNE_HZ) > 1e-3:
+        raise AssertionError("file: dial tuning by the centre frequency")
+    print("file: audio bit-equal to run() on the 16-bit-rounded samples; "
+          "tune_rf by the rcvr chunk's centre lands on the dial")
+    return launches
+
+
+def phase_latency(dev: dict, device="cuda", steps: int = 100) -> None:
+    from linrad_tpu_torch import derive_geometry
+    from linrad_tpu_torch.pipeline.latency import (latency_params,
+                                                   measure_latency,
+                                                   pipeline_delay_samples)
+    for second_fft in (False, True):
+        p = latency_params(second_fft=second_fft)
+        geo = derive_geometry(p)
+        rep = measure_latency(p, steps=steps, device=device)
+        print(f"latency second_fft={second_fft}: {json.dumps(rep)} "
+              f"[{dev['smi']}]")
+        want = ["block_ms", "proc_ms_p50", "proc_ms_p95", "pipeline_ms",
+                "total_ms", "budget_ms", "within_budget", "sustained"]
+        analytic = round(1e3 * pipeline_delay_samples(geo)
+                         / geo.timf1_sampling_speed, 2)
+        if list(rep) != want or rep["pipeline_ms"] != analytic \
+                or not rep["proc_ms_p50"] > 0:
+            raise AssertionError(f"latency: the report's fields, or "
+                                 f"pipeline_ms != {analytic}")
+
+
+def phase_radar_wfm(dev: dict, device="cuda") -> None:
+    """frame_pulse_stats, the tracker and the stereo decoder on the device
+    against the same functions on the CPU."""
+    from linrad_tpu_torch.ops.demod import (wfm_stereo_decode,
+                                            wfm_stereo_encode)
+    from linrad_tpu_torch.weak.radar import (RadarParams, RadarTracker,
+                                             frame_pulse_stats)
+    # a pulse train on bin 100 every 40 frames, 3 frames wide, with skirts;
+    # an echo 8 frames later, 26 dB down; the receiver muted while sending
+    rng = np.random.default_rng(12)
+    n_bins, frames = 2048, 1280
+    bins = np.arange(n_bins)
+    pw = rng.exponential(size=(frames, n_bins)).astype(np.float32) * 1e-3
+    skirt = np.exp(-0.5 * ((bins - 100) / 2.0) ** 2)
+    for f0 in range(5, frames, 40):
+        pw[f0:f0 + 3] = pw[f0:f0 + 3] * 0.01 + 1e4 * skirt
+        if f0 + 11 <= frames:
+            pw[f0 + 8:f0 + 11] += 25.0 * skirt
+    on_dev = frame_pulse_stats(torch.from_numpy(pw).to(device))
+    on_cpu = frame_pulse_stats(torch.from_numpy(pw))
+    if not torch.equal(on_dev[0].cpu(), on_cpu[0]):
+        raise AssertionError("radar: peak bins differ from the CPU's")
+    rel = [max_rel(a.cpu(), b) for a, b in zip(on_dev[1:], on_cpu[1:])]
+    print(f"radar: frame_pulse_stats on {device} over {frames} frames of "
+          f"{n_bins} bins against the CPU: peak bins exact, ston max_rel "
+          f"{rel[0]:.3e}, noise floor max_rel {rel[1]:.3e} (bar 1e-5)")
+    if max(rel) > 1e-5:
+        raise AssertionError("radar: ston or noise floor outside 1e-5")
+    trackers = [RadarTracker(n_bins=n_bins, frame_time_s=0.01, bin_hz=46.875,
+                             params=RadarParams(lock_after=500), device=d)
+                for d in (device, "cpu")]
+    for i in range(0, frames, 64):
+        for t in trackers:
+            t.feed(pw[i:i + 64])
+    a, b = trackers
+    state = [(t.locked, t.pulse_sep, t.pulse_bin, t.lines, t.first_bin,
+              t.last_bin, t.update_cnt, t.echo_peak()) for t in trackers]
+    print(f"radar: tracker on {device}: locked {a.locked}, pulse_sep "
+          f"{a.pulse_sep}, pulse_bin {a.pulse_bin}, {a.update_cnt} display "
+          f"updates, echo (line, bin offset, doppler Hz) {a.echo_peak()}; "
+          f"display max_rel against the CPU tracker "
+          f"{max_rel(torch.from_numpy(a.average), torch.from_numpy(b.average)):.3e}")
+    if state[0] != state[1] or not a.locked or a.pulse_sep != 40 \
+            or a.pulse_bin != 100 or abs(a.echo_peak()[0] - 8) > 1:
+        raise AssertionError(f"radar: the tracker's decisions: {state}")
+    if max_rel(torch.from_numpy(a.average),
+               torch.from_numpy(b.average)) > 1e-5:
+        raise AssertionError("radar: the display differs from the CPU's")
+
+    fs = 192_000.0
+    t = np.arange(int(0.25 * fs)) / fs
+    left = np.sin(2 * np.pi * 700.0 * t)
+    right = np.sin(2 * np.pi * 2500.0 * t)
+    comp = wfm_stereo_encode(left, right, fs)
+    l, r, pil = wfm_stereo_decode(torch.from_numpy(comp).to(device), fs)
+    lc, rc, pc = wfm_stereo_decode(torch.from_numpy(comp), fs)
+    rel = max(max_rel(l.cpu(), lc), max_rel(r.cpu(), rc))
+    l, r = l.double().cpu().numpy(), r.double().cpu().numpy()
+
+    def tone_pwr(x, f):
+        return abs(np.vdot(np.exp(2j * np.pi * f * t), x) / len(x)) ** 2
+
+    sep_l = 10 * np.log10(tone_pwr(l, 700.0) / tone_pwr(l, 2500.0))
+    sep_r = 10 * np.log10(tone_pwr(r, 2500.0) / tone_pwr(r, 700.0))
+    print(f"wfm: wfm_stereo_decode on {device} over {len(t)} samples "
+          f"against the CPU: max_rel {rel:.3e} (bar 1e-5); separation left "
+          f"{sep_l:.1f} dB, right {sep_r:.1f} dB (bar 25 dB); pilot power "
+          f"ratio {float(pil):.5f} (CPU {float(pc):.5f}, bar 1e-3)")
+    if rel > 1e-5 or min(sep_l, sep_r) <= 25.0 or float(pil) <= 1e-3:
+        raise AssertionError("wfm: the decode differs from the CPU's, or "
+                             "the channels are not separated")
+
+
 # stage functions of pipeline/chain.py: (module attribute of chain, name)
 STAGES = [(None, "fft1_step"), ("sellim_ops", "update_liminfo"),
           ("sellim_ops", "liminfo_gains"), (None, "timf2_step"),
@@ -1139,6 +1706,9 @@ def main() -> None:
         stage_split(dev)
         stage_split(dev, k_sub=1)
         return
+    if sys.argv[1:] == ["--regimes"]:
+        replay_regimes(dev)
+        return
     kern = phase_kernel(dev)
     launches = phase_main()
     phase_timing(dev)
@@ -1147,6 +1717,11 @@ def main() -> None:
     launches += eme_launches
     launches += phase_multi(dev)
     launches += phase_real(dev)
+    launches += phase_batch(dev)
+    launches += phase_checkpoint(dev)
+    launches += phase_file(dev)
+    phase_latency(dev)
+    phase_radar_wfm(dev)
     print(json.dumps({"kernels": [{
         "name": "fused_fft1", "route": "cuda",
         "source": "linrad_tpu_torch/csrc/fused_fft1.cu",

@@ -1,9 +1,10 @@
 """linrad_tpu_torch — the PyTorch/CUDA port of linrad_tpu.
 
 The JAX package ``linrad_tpu`` stays the reference.  This package keeps
-its own copies of the configuration modules (``params``, ``geometry``,
-``ops.windows``, ``utils.llsq``, ``weak.afc``), imports nothing of
-``linrad_tpu``, and returns the same ``RxOutputs`` fields, in PyTorch, with the TPU's Pallas kernel rewritten as a CUDA
+its own copies of the modules that need no JAX (``params``, ``geometry``,
+``ops.windows``, ``utils.llsq``, ``weak.afc``, ``errors``, ``io.wav``,
+``io.siggen``, ``io.rawfile``, ``runtime`` with its C++ library),
+imports nothing of ``linrad_tpu``, and returns the same ``RxOutputs`` fields, in PyTorch, with the TPU's Pallas kernel rewritten as a CUDA
 kernel for Hopper (``csrc/fused_fft1.cu``).
 
 Ported so far: the whole receive chain, ``pipeline.chain.make_rx_step``
@@ -13,10 +14,16 @@ real input with one or two channels, I/Q image correction, both
 blankers, spur cancellation, both mixer modes, adaptive polarization, the
 SSB, AM, FM and coherent detectors, AGC, expander, squelch, the audio
 resampler, and the host-side AFC and spur manager
-(``pipeline.control``).  ``blanker_rounds>0``, the ``mxu`` fft1 variants
-and ``shards>1`` raise NotImplementedError naming their ROADMAP entry;
-the host layer (batching, checkpoints, latency, file replay) and the
-scale-out are still to come.
+(``pipeline.control``); and the host layer around it:
+``pipeline.batch.BatchRunner`` (K steps per call, the step captured into
+a CUDA graph by ``GraphedStep``), ``pipeline.checkpoint`` (save and
+resume), ``pipeline.latency`` (the latency budget), ``Receiver.run_file``
+(WAV replay through ``runtime.FilePrefetcher``), ``runtime.watchdog``,
+the step timers of ``utils.timing``, ``ops.demod.wfm_stereo_decode`` and
+the radar tracker ``weak.radar``.  ``blanker_rounds>0``, the ``mxu`` fft1
+variants and ``shards>1`` raise NotImplementedError naming their ROADMAP
+entry; the scale-out (``parallel/``), the transmit side and the display
+and network modules are still to come.
 
 This package never imports jax or ``linrad_tpu``;
 ``convert.params_from_jax`` turns the JAX package's ``RxParams`` into

@@ -5,7 +5,8 @@ the carrier-locked coherent detector (coherent modes 1/2,
 mix2.c:1841-1900).  The recurrences are ``utils.scanops.one_pole``.
 Streams are (..., S, C) with the state stacked on the same leading axes,
 so one call serves one receiver or K sub-receivers.
-``wfm_stereo_decode`` is on no chain path and is not ported."""
+``wfm_stereo_decode`` (the broadcast-WFM stereo pilot path, fm.c:373-420)
+is on no chain path: it takes a whole demodulated composite block."""
 
 from __future__ import annotations
 
@@ -96,6 +97,75 @@ def fm_deemphasis(audio: torch.Tensor, fs: float, tau_us: float,
     """FM de-emphasis one-pole (tau 50 us EU, 75 us US).  Returns (audio,
     carry)."""
     return one_pole(audio, _pole(fs * tau_us * 1e-6), y0, dim=-2)
+
+
+def wfm_stereo_decode(composite: torch.Tensor, fs: float,
+                      audio_cut_hz: float = 15_000.0,
+                      pilot_hz: float = 19_000.0
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Broadcast-WFM stereo decode of an FM-demodulated composite
+    (the fm.c wideband-stereo pilot path, fm.c:373-420): correlate the
+    19 kHz pilot against a complex exponential to recover its phase,
+    coherently demodulate the 38 kHz DSB L-R subcarrier with the doubled
+    pilot phase, low-pass both channels, and matrix to L/R.
+
+    Vectorized over the whole block (FFT filtering instead of the
+    reference's FIR ring walks).  composite: (n,) float at fs (must
+    exceed ~2*53 kHz), on the device the decode is to run on.  Returns
+    (left, right, pilot_power_ratio), the last a 0-dim tensor.
+
+    The time axis and the sine's argument are built in float32 in the
+    JAX function's order, (2 pi pilot_hz) * (k / fs): at a second of
+    signal the argument is 2.4e5 rad, where one float32 step is 0.016
+    rad, so another order would move the phases by far more than
+    roundoff."""
+    x = composite.to(torch.float32)
+    n = x.shape[0]
+    dev = x.device
+    # the rate as a tensor on the device: by a Python scalar a CUDA tensor
+    # is multiplied by the reciprocal, which is not the quotient
+    t = torch.arange(n, dtype=torch.float32, device=dev) / torch.full(
+        (), float(np.float32(fs)), dtype=torch.float32, device=dev)
+    w = float(np.float32(2 * np.pi) * np.float32(pilot_hz))
+    wt = w * t
+    # pilot phase from the whole-block correlation (fm.c:381-393)
+    ref = torch.complex(torch.cos(wt), -torch.sin(wt))
+    pil = torch.sum(x * ref) * (2.0 / n)
+    pilot_pwr = pil.abs() ** 2 / torch.clamp(torch.mean(x * x), min=1e-20)
+    ph = torch.angle(pil)
+    # 38 kHz coherent subcarrier at doubled pilot phase.  The standard
+    # ties the subcarrier's positive-slope zero crossings to the
+    # pilot's: pilot = sin(theta) = cos(omega*t + ph) with
+    # theta = omega*t + ph + pi/2, subcarrier = sin(2*theta)
+    # = -sin(2*(omega*t + ph))
+    sub = -torch.sin(2 * (wt + ph))
+    lmr_raw = 2.0 * x * sub
+    # FFT brick-wall low-pass with raised-cosine edge at audio_cut_hz
+    freqs = torch.fft.fftfreq(n, 1.0 / fs, dtype=torch.float32,
+                              device=dev).abs()
+    edge = 0.1 * audio_cut_hz
+    gain = torch.clamp((audio_cut_hz + edge - freqs) / edge, 0.0, 1.0)
+    gain = torch.sin(0.5 * math.pi * gain) ** 2
+
+    def lp(sig):
+        return torch.fft.ifft(torch.fft.fft(sig) * gain).real
+
+    lpr = lp(x)          # L+R (the mono signal, at most 15 kHz + trash)
+    lmr = lp(lmr_raw)    # L-R
+    return 0.5 * (lpr + lmr), 0.5 * (lpr - lmr), pilot_pwr
+
+
+def wfm_stereo_encode(left: np.ndarray, right: np.ndarray, fs: float,
+                      pilot_level: float = 0.1,
+                      pilot_hz: float = 19_000.0) -> np.ndarray:
+    """Test-vector generator: the standard stereo multiplex
+    (L+R)/2 + pilot·sin(theta) + (L-R)/2·sin(2·theta): the subcarrier
+    crosses zero upward together with the pilot (FCC/ITU phasing)."""
+    t = np.arange(len(left)) / fs
+    return ((left + right) / 2
+            + pilot_level * np.sin(2 * np.pi * pilot_hz * t)
+            + ((left - right) / 2) * np.sin(4 * np.pi * pilot_hz * t)
+            ).astype(np.float32)
 
 
 @dataclass

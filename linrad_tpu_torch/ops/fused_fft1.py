@@ -282,7 +282,12 @@ def fused_fft1(frames: torch.Tensor, window: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"fused_fft1: kernel launch failed with CUDA "
                            f"error {err} at shape {(b, n, c)}")
-    fused_fft1.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        # recorded into a CUDA graph, nothing launched: whoever replays the
+        # graph counts its launches
+        fused_fft1.captured += 1
+    else:
+        fused_fft1.launches += 1
     return spec, psum
 
 
@@ -299,3 +304,4 @@ def empty_launch(device: torch.device) -> None:
 
 
 fused_fft1.launches = 0
+fused_fft1.captured = 0

@@ -16,8 +16,9 @@ Both receivers run on ``device="cuda"`` unless the caller names another
 device, and raise when there is no CUDA device: nothing carries on on the
 CPU by itself.
 
-``run_file`` (WAV replay through the native prefetcher) is not ported: it
-belongs to the host layer (ROADMAP "Next").  Configurations that
+``Receiver.run_file`` replays a WAV recording through the runtime's file
+prefetcher (disk reads overlap the device's work) and stages each block
+through page-locked memory.  Configurations that
 :func:`..pipeline.chain.check_supported` refuses raise
 NotImplementedError.
 """
@@ -25,6 +26,7 @@ NotImplementedError.
 from __future__ import annotations
 
 import dataclasses
+import struct
 import threading
 import time
 
@@ -196,6 +198,14 @@ class Receiver:
     def spur_manager(self):
         return self.control.spur_manager
 
+    @property
+    def _steps_done(self) -> int:
+        return self.control.steps_done
+
+    @_steps_done.setter
+    def _steps_done(self, v: int) -> None:
+        self.control.steps_done = v
+
     # ---- tuning -------------------------------------------------------
     def tune_rf(self, rf_hz: float) -> None:
         """Tune to an absolute RF (dial) frequency, mapping through the
@@ -295,6 +305,81 @@ class Receiver:
             yield out
             i += 1
             done += 1
+
+    def run_file(self, path: str):
+        """Stream a .wav recording through the native file prefetcher
+        (runtime ring buffer + background reader, the
+        THREAD_RX_FILE_INPUT analog): disk I/O overlaps device compute.
+        Yields RxOutputs per step.  The RF centre frequency of an
+        ``rcvr`` or ``auxi`` chunk becomes ``center_frequency_hz``."""
+        from .. import runtime
+        from ..io.wav import AuxiChunk, RcvrChunk, read_wav
+
+        # parse the header once to learn the layout, then stream the
+        # payload through the prefetcher
+        with open(path, "rb") as f:
+            riff = f.read(12)
+            if riff[:4] != b"RIFF":
+                raise ValueError(f"{path}: not a WAV")
+            fmt = None
+            while True:
+                hdr = f.read(8)
+                if len(hdr) < 8:
+                    raise ValueError(f"{path}: missing data chunk")
+                cid, csize = struct.unpack("<4sI", hdr)
+                if cid == b"fmt ":
+                    fmt = f.read(csize)
+                elif cid == b"rcvr":
+                    # RF centre from the capture metadata -> dial tuning
+                    self.center_frequency_hz = float(
+                        RcvrChunk.unpack(f.read(csize)).center_frequency_hz)
+                elif cid == b"auxi":
+                    self.center_frequency_hz = float(
+                        AuxiChunk.unpack(f.read(csize)).center_freq)
+                elif cid == b"data":
+                    data_off = f.tell()
+                    break
+                else:
+                    f.seek(csize + (csize & 1), 1)
+        (_wformat, nch, _rate, _br, _al, bits) = struct.unpack("<HHIIHH",
+                                                               fmt[:16])
+        if bits != 16 or nch != 2 * self.geo.channels:
+            # uncommon layouts go through the simple reader
+            iq, info = read_wav(path)
+            if info.rcvr is not None:
+                self.center_frequency_hz = float(
+                    info.rcvr.center_frequency_hz)
+            elif info.auxi is not None:
+                self.center_frequency_hz = float(info.auxi.center_freq)
+            yield from self.run(iq)
+            return
+        frame_bytes = 2 * nch
+        s = self.geo.samples_per_step
+        pf = runtime.FilePrefetcher(path, block_bytes=s * frame_bytes,
+                                    offset=data_off)
+        # two host buffers in turn, page-locked when the device is a card,
+        # so the copy to the device is asynchronous; a buffer is refilled
+        # only after the event behind the copy that read it
+        cuda = self.device.type == "cuda"
+        stage = [torch.empty((s, nch // 2), dtype=torch.complex64,
+                             pin_memory=cuda) for _ in range(2)]
+        copied = [torch.cuda.Event() if cuda else None for _ in range(2)]
+        i = 0
+        while True:
+            raw = pf.read_block()
+            if len(raw) < s * frame_bytes:
+                break
+            buf = stage[i % 2]
+            if cuda:
+                copied[i % 2].synchronize()
+            parts = torch.view_as_real(buf).numpy()     # (s, C, 2) float32
+            parts[...] = np.frombuffer(raw, "<i2").reshape(s, nch // 2, 2)
+            block = buf.to(self.device, non_blocking=True) if cuda \
+                else buf.clone()
+            if cuda:
+                copied[i % 2].record()
+            yield self.process_block(block)
+            i += 1
 
     def process(self, iq: np.ndarray) -> dict[str, np.ndarray]:
         """Convenience: process a whole recording and concatenate the

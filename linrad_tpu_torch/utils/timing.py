@@ -1,5 +1,13 @@
-"""Timing on the card: eager calls between CUDA events, and device-only
-time from a CUDA graph replay.
+"""Timing on the card: eager calls between CUDA events, device-only time
+from a CUDA graph replay, and the step and stage timers of
+linrad_tpu/utils/timing.py.
+
+The reference accounts per-thread CPU time at about 1 Hz
+(thread_workload[], menu.c:914-957; the T-display, timing.c:361).  Here
+:class:`StepTimer` measures a step's wall time up to the device having
+finished it and reports samples/s and the real-time factor, the numbers
+that replace the on-screen workload percentages; :func:`profile_stages`
+attributes cost to named stages.
 
 As a script it times ``fused_fft1`` of this checkout, or of this
 checkout and another on the same card in turns (other, this, this,
@@ -14,7 +22,75 @@ line printed carries the card's name and power limit.
 
 from __future__ import annotations
 
+import time
+from dataclasses import dataclass, field
+
 import torch
+
+
+def _finish(*tensors) -> None:
+    """Wait until the device has produced the given CUDA tensors."""
+    for dev in {t.device for t in tensors
+                if isinstance(t, torch.Tensor) and t.is_cuda}:
+        torch.cuda.synchronize(dev)
+
+
+@dataclass
+class StepTimer:
+    """Collects per-step timings; use around the step call."""
+
+    sample_rate: float
+    samples_per_step: int
+    _times: list = field(default_factory=list)
+    _t0: float = 0.0
+
+    def start(self) -> None:
+        self._t0 = time.perf_counter()
+
+    def stop(self, *tensors) -> float:
+        _finish(*tensors)
+        dt = time.perf_counter() - self._t0
+        self._times.append(dt)
+        return dt
+
+    @property
+    def mean_step_s(self) -> float:
+        t = self._times[1:] or self._times  # skip the warm-up step
+        return sum(t) / max(len(t), 1)
+
+    @property
+    def samples_per_second(self) -> float:
+        return self.samples_per_step / max(self.mean_step_s, 1e-12)
+
+    @property
+    def realtime_factor(self) -> float:
+        """>1 means faster than the A/D produces samples (the headroom
+        the reference's workload % expresses inversely)."""
+        return self.samples_per_second / self.sample_rate
+
+    def report(self) -> dict:
+        return {
+            "steps": len(self._times),
+            "mean_step_ms": 1e3 * self.mean_step_s,
+            "msamples_per_s": self.samples_per_second / 1e6,
+            "realtime_factor": self.realtime_factor,
+        }
+
+
+def profile_stages(fns: dict, repeats: int = 10) -> dict:
+    """Time a dict of name -> zero-arg callables returning a tensor or a
+    tuple of tensors (per-stage cost attribution, the per-thread CPU%
+    analog): seconds per call, the device's work included."""
+    out = {}
+    for name, fn in fns.items():
+        r = fn()  # warm-up
+        _finish(*(r if isinstance(r, (tuple, list)) else (r,)))
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            r = fn()
+        _finish(*(r if isinstance(r, (tuple, list)) else (r,)))
+        out[name] = (time.perf_counter() - t0) / repeats
+    return out
 
 
 def cuda_ms(fn, reps: int) -> float:

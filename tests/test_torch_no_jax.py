@@ -17,7 +17,11 @@ ROOT = Path(__file__).resolve().parents[1]
 MODULES = [
     "linrad_tpu_torch",
     "linrad_tpu_torch.convert",
+    "linrad_tpu_torch.errors",
     "linrad_tpu_torch.geometry",
+    "linrad_tpu_torch.io.rawfile",
+    "linrad_tpu_torch.io.siggen",
+    "linrad_tpu_torch.io.wav",
     "linrad_tpu_torch.params",
     "linrad_tpu_torch.ops.agc",
     "linrad_tpu_torch.ops.blanker",
@@ -35,15 +39,21 @@ MODULES = [
     "linrad_tpu_torch.ops.squelch",
     "linrad_tpu_torch.ops.timf2",
     "linrad_tpu_torch.ops.windows",
+    "linrad_tpu_torch.pipeline.batch",
     "linrad_tpu_torch.pipeline.chain",
+    "linrad_tpu_torch.pipeline.checkpoint",
     "linrad_tpu_torch.pipeline.control",
+    "linrad_tpu_torch.pipeline.latency",
     "linrad_tpu_torch.pipeline.receiver",
+    "linrad_tpu_torch.runtime",
+    "linrad_tpu_torch.runtime.watchdog",
     "linrad_tpu_torch.utils.llsq",
     "linrad_tpu_torch.utils.scanops",
     "linrad_tpu_torch.utils.segments",
     "linrad_tpu_torch.utils.timing",
     "linrad_tpu_torch.weak.afc",
     "linrad_tpu_torch.weak.pol",
+    "linrad_tpu_torch.weak.radar",
     "linrad_tpu_torch.weak.spur",
 ]
 
@@ -76,9 +86,13 @@ def test_modules_list_is_complete():
         rel = path.relative_to(ROOT).with_suffix("")
         parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
         found.add(".".join(parts))
-    subpackages = {"linrad_tpu_torch.ops", "linrad_tpu_torch.pipeline",
-                   "linrad_tpu_torch.utils", "linrad_tpu_torch.weak"}
+    # runtime is a subpackage with code of its own (the ctypes bindings)
+    subpackages = {"linrad_tpu_torch.io", "linrad_tpu_torch.ops",
+                   "linrad_tpu_torch.pipeline", "linrad_tpu_torch.utils",
+                   "linrad_tpu_torch.weak"}
     assert found - subpackages == set(MODULES)
+    for sub in ("io.", "runtime", "weak.radar", "pipeline.batch"):
+        assert any(m.startswith("linrad_tpu_torch." + sub) for m in MODULES)
 
 
 def _imported_names(path: Path) -> list[tuple[int, str]]:
@@ -182,6 +196,51 @@ def test_cpu_multi_receiver_does_not_import_jax():
         "outs = list(rx.run(x))\n"
         "assert len(outs) == 2 and outs[-1].audio.shape == "
         "(2 * rx.geo.baseband_samples_per_step, 1)\n"
+        + FOREIGN)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]", proc.stdout
+
+
+def test_cpu_host_layer_does_not_import_jax():
+    """The host layer on a tiny receiver, jax-free: a WAV written and
+    replayed through the prefetcher, a checkpoint saved and resumed, two
+    calls of the batch runner, the latency report and a radar tracker's
+    feed."""
+    proc = _run(
+        "import sys, os, tempfile, numpy as np\n"
+        "from linrad_tpu_torch import flagship_params\n"
+        "from linrad_tpu_torch.io.siggen import Tone, tones_iq\n"
+        "from linrad_tpu_torch.io.wav import RcvrChunk, write_wav\n"
+        "from linrad_tpu_torch.pipeline.batch import BatchRunner\n"
+        "from linrad_tpu_torch.pipeline.checkpoint import load_receiver, "
+        "save_receiver\n"
+        "from linrad_tpu_torch.pipeline.latency import latency_params, "
+        "measure_latency\n"
+        "from linrad_tpu_torch.pipeline.receiver import Receiver\n"
+        "from linrad_tpu_torch.weak.radar import RadarTracker\n"
+        "p = flagship_params(tiny=True)\n"
+        "rx = Receiver(p, device='cpu')\n"
+        "rx.tune(1000.0)\n"
+        "s = rx.geo.samples_per_step\n"
+        "iq = tones_iq(96000, 4 * s, [Tone(1300.0, amplitude=900.0)])\n"
+        "d = tempfile.mkdtemp()\n"
+        "wav = os.path.join(d, 'a.wav')\n"
+        "write_wav(wav, iq[:, None], 96000, rcvr=RcvrChunk("
+        "center_frequency_hz=7000000))\n"
+        "assert len(list(rx.run_file(wav))) == 4\n"
+        "assert rx.center_frequency_hz == 7000000.0\n"
+        "save_receiver(os.path.join(d, 'c.npz'), rx)\n"
+        "rx2 = load_receiver(os.path.join(d, 'c.npz'), device='cpu')\n"
+        "assert rx2._steps_done == 4\n"
+        "br = BatchRunner(p, k_steps=2, device='cpu')\n"
+        "assert br.process(iq)['audio'].shape == "
+        "(4 * rx.geo.baseband_samples_per_step, 1)\n"
+        "rep = measure_latency(latency_params(), steps=2, warmup=1, "
+        "device='cpu')\n"
+        "assert rep['budget_ms'] == 150.0\n"
+        "trk = RadarTracker(n_bins=256, frame_time_s=0.01, device='cpu')\n"
+        "trk.feed(np.random.default_rng(0).random((8, 256)))\n"
+        "assert not trk.locked\n"
         + FOREIGN)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]", proc.stdout
