@@ -101,6 +101,35 @@ Phases, in order; any failure raises and the script exits non-zero:
             (peak bins and every decision exact, floats 1e-5), and the
             stereo round trip (separation over 25 dB, pilot found).
 
+15. rounds  the flagship with blanker_rounds=8 (the round-parallel clever
+            blanker) on phase 4's input: Receiver for 8 steps (one launch
+            a step; against a torch.fft receiver to phase 4's bars, counts
+            exact), then BatchRunner(k_steps=8) from a CUDA graph for 16
+            steps, bit-equal to the same step run eagerly.  Fits per step
+            beside the sequential blanker's; device kernels per step
+            (torch.profiler) and ms per step of the replays, in turns with
+            the same runner at blanker_rounds=0.
+16. mxu     the flagship with fft1_variant "mxu" (the four-step matmul DFT,
+            2048 = 32 x 64, in float32) for 8 steps against the "xla"
+            receiver to phase 4's bars; the same run once more with TF32
+            switched on by this script gives the same bits; "mxu_bf16"
+            against the same variant run on the CPU, to phase 4's bars,
+            and what it reaches against "xla".  No kernel launch on these
+            paths: the JAX package's dispatch takes no Pallas kernel
+            there either.
+17. calibration  the flagship with a filtercorr from
+            calibration.make_filtercorr of a tilted, rippled response:
+            the kernel receiver against the torch.fft one, phase 4's bars.
+18. fleet   FleetRunner(flagship, n_streams=8, k_steps=8) for 16 steps, each
+            stream a keyed tone on its own dial over phase 4's carrier,
+            noise and impulses, with vmap's slow-path warning an error
+            (no operation loops over the streams): one kernel launch per
+            step for the eight streams (the fused fft1's vmap rule folds
+            them into its channel axis, (64, 2048, 8)); three streams
+            against a single Receiver on the same dial, phase 4's bars; ms
+            per step and aggregate complex Msamples/s at R = 1 and R = 8 in
+            turns, the graph pools, the stream fold's copy alone.
+
 ``python3 chip_smoke.py --stages`` runs phases 1 and 2 and then, instead
 of the smoke run, a diagnostic: the synced wall time of every stage of
 the multi-receiver step at K = 24 and K = 1.  ``--regimes`` likewise
@@ -110,7 +139,8 @@ after an eager loop).
 
 It prints a JSON line describing every kernel of the paths (launches
 summed over the flagship, EME, multi-receiver, real-input, batch,
-checkpoint and file runs, each counted from zero; times
+checkpoint, file, rounds, mxu, calibration and fleet runs, each counted
+from zero; times
 at the flagship's shape, and per shape under "by_shape"), then, as the
 last line, {"ok": true, "device": {...}}.
 """
@@ -124,6 +154,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -131,6 +162,8 @@ import torch
 STEPS = 8
 KERNEL_SHAPES = [(3, 128, 1), (40, 512, 2), (64, 2048, 1), (2048, 2048, 1),
                  (64, 4096, 2),
+                 # the fleet's eight flagship streams folded into channels
+                 (64, 2048, 8),
                  # the kernel's other ways: three frames a block with a
                  # ragged end, channels in pairs and singly along grid y
                  (1100, 2048, 1), (9, 1024, 4), (5, 256, 3)]
@@ -182,6 +215,15 @@ REAL_STEPS = 6
 BATCH_K = 8
 BATCH_STEPS = 16
 FILE_STEPS = 8
+# the round-parallel blanker, the fleet
+ROUNDS = 8
+FLEET_R = 8
+FLEET_K = 8
+FLEET_STEPS = 16
+FLEET_FIELDS = ("audio", "baseb")
+# the start of the warning torch.func.vmap gives where an operation has no
+# batching rule and it loops over the batch instead
+VMAP_SLOW_PATH = "There is a performance drop"
 
 
 def max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -354,14 +396,16 @@ def make_input(geo, seed: int = 0, steps: int = STEPS, tones=(TUNE_HZ,),
     return (tone + carrier + noise + imp).astype(np.complex64)[:, None]
 
 
-def run_receiver(variant: str, iq: np.ndarray) -> list:
-    """Receiver on the card, tuned to the tone, over every step of iq."""
-    from linrad_tpu_torch import flagship_params
+def run_rx(p, iq: np.ndarray, device, calibration=None,
+           tune_hz: float = TUNE_HZ) -> list:
+    """A Receiver on ``device`` tuned to ``tune_hz`` over every step of
+    iq; the outputs after the device has finished."""
     from linrad_tpu_torch.pipeline.receiver import Receiver
-    rx = Receiver(flagship_params(fft1_variant=variant), device="cuda")
-    rx.tune(TUNE_HZ)
+    rx = Receiver(p, calibration, device=device)
+    rx.tune(tune_hz)
     outs = list(rx.run(iq))
-    torch.cuda.synchronize()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
     return outs
 
 
@@ -372,22 +416,14 @@ def phase_main() -> int:
     geo = derive_geometry(flagship_params())
     iq = make_input(geo)
     fused_fft1.launches = 0
-    outs = run_receiver("pallas", iq)
+    outs = run_rx(flagship_params(fft1_variant="pallas"), iq, "cuda")
     launches = fused_fft1.launches
     print(f"main path: {len(outs)} steps of {geo.samples_per_step} samples, "
           f"fused_fft1 launches {launches}")
     if launches != STEPS or len(outs) != STEPS:
         raise AssertionError(f"expected {STEPS} kernel launches (one per "
                              f"step), saw {launches}")
-    shapes = {"audio": (geo.baseband_samples_per_step, 1),
-              "baseb": (geo.baseband_samples_per_step, 1),
-              "fft1_power": (geo.fft1_size, 1),
-              "fft1_avg_power": (geo.fft1_size, 1),
-              "agc_gain": (geo.baseband_samples_per_step, 1),
-              "fft2_power": (geo.fft2_size, 1),
-              "liminfo": (geo.fft1_size,),
-              "blanker_fitted": (), "blanker_cleared": (),
-              "noise_floor": ()}
+    shapes = flagship_shapes(geo)
     check_outputs(outs, shapes)
     fitted = [int(o.blanker_fitted) for o in outs]
     cleared = [int(o.blanker_cleared) for o in outs]
@@ -406,8 +442,20 @@ def phase_main() -> int:
     if abs(peak_hz - 800.0) > 20.0:
         raise AssertionError("the keyed CW tone is not at the BFO offset")
 
-    compare_runs(outs, run_receiver("xla", iq), shapes, "")
+    compare_runs(outs, run_rx(flagship_params(fft1_variant="xla"), iq,
+                              "cuda"), shapes, "")
     return launches
+
+
+def flagship_shapes(geo, lead: tuple = ()) -> dict:
+    """Every RxOutputs field's shape on the flagship configuration."""
+    bb = geo.baseband_samples_per_step
+    return {"audio": lead + (bb, 1), "baseb": lead + (bb, 1),
+            "fft1_power": (geo.fft1_size, 1),
+            "fft1_avg_power": (geo.fft1_size, 1),
+            "agc_gain": lead + (bb, 1), "fft2_power": (geo.fft2_size, 1),
+            "liminfo": (geo.fft1_size,), "blanker_fitted": (),
+            "blanker_cleared": (), "noise_floor": ()}
 
 
 def check_outputs(outs: list, shapes: dict) -> None:
@@ -423,11 +471,13 @@ def check_outputs(outs: list, shapes: dict) -> None:
 
 
 def compare_runs(outs: list, ref: list, keys, label: str,
-                 start_tol: dict | None = None) -> None:
+                 start_tol: dict | None = None,
+                 what: str = "pallas vs xla on the card") -> None:
     """The receiver through the kernel (outs) against the receiver through
-    torch.fft (ref): blanker counts and the liminfo sign pattern exact in
-    every step, each float field within its bar (step 0's audio within
-    START_AUDIO_TOL, or step 0's fields within ``start_tol``)."""
+    torch.fft (ref), or the two receivers ``what`` names: blanker counts
+    and the liminfo sign pattern exact in every step, each float field
+    within its bar (step 0's audio within START_AUDIO_TOL, or step 0's
+    fields within ``start_tol``)."""
     start_tol = start_tol or {"audio": START_AUDIO_TOL}
     # worst max_rel per field: over the start-up step, and over the rest
     start, steady = {}, {}
@@ -452,14 +502,13 @@ def compare_runs(outs: list, ref: list, keys, label: str,
             bar = CHAIN_TOL.get(k, CHAIN_TOL_OTHER)
             if span == "step 0":
                 bar = start_tol.get(k, bar)
-            print(f"{label}pallas vs xla on the card, {span}: {k} max_rel "
-                  f"{v:.3e} (bar {bar})")
+            print(f"{label}{what}, {span}: {k} max_rel {v:.3e} (bar {bar})")
             if v > bar:
                 failed.append(f"{label}{span} {k}: max_rel {v} > {bar}")
     if failed:
         raise AssertionError("; ".join(failed))
-    print(f"{label}pallas vs xla: liminfo sign pattern and blanker counts "
-          f"exact in every step")
+    print(f"{label}{what}: liminfo sign pattern and blanker counts exact "
+          f"in every step")
 
 
 def phase_timing(dev: dict) -> None:
@@ -845,13 +894,7 @@ def phase_multi(dev: dict, device=None, tiny: bool = False,
                              f"per step), saw {launches}")
     if on_card and rx.device.type != "cuda":
         raise AssertionError("multi: the default device is not the card")
-    bb = geo.baseband_samples_per_step
-    shapes = {"audio": (k_sub, bb, 1), "baseb": (k_sub, bb, 1),
-              "fft1_power": (geo.fft1_size, 1),
-              "fft1_avg_power": (geo.fft1_size, 1),
-              "agc_gain": (k_sub, bb, 1), "fft2_power": (geo.fft2_size, 1),
-              "liminfo": (geo.fft1_size,), "blanker_fitted": (),
-              "blanker_cleared": (), "noise_floor": ()}
+    shapes = flagship_shapes(geo, (k_sub,))
     check_outputs(outs, shapes)
     print(f"multi: blanker_fitted {[int(o.blanker_fitted) for o in outs]}; "
           f"blanker_cleared {[int(o.blanker_cleared) for o in outs]}")
@@ -1123,6 +1166,18 @@ def eager_batch(p, tune_hz: float, iq: np.ndarray, device) -> dict:
             "baseb": torch.cat(baseb).cpu().numpy()}
 
 
+def timed_ms(fn) -> float:
+    """Milliseconds between CUDA events around one call of fn."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
 def profile_call(fn) -> dict:
     """One call of fn under torch.profiler.  "busy_ms": the device's busy
     time summed over every kernel and copy traced; "wall_ms": the time
@@ -1267,16 +1322,6 @@ def phase_batch_timing(dev: dict, p, iq: np.ndarray, br) -> None:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
 
-    def timed(fn) -> float:
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end)
-
     fns = {"eager": lambda: eager_batch(p, TUNE_HZ, iq, br.device),
            "graph": lambda: br.process(iq)}
     for fn in fns.values():                     # warm-up of both paths
@@ -1284,7 +1329,7 @@ def phase_batch_timing(dev: dict, p, iq: np.ndarray, br) -> None:
     times = {}
     for label in ("eager", "graph", "graph", "eager"):
         t0 = time.perf_counter()
-        ms = timed(fns[label]) / steps
+        ms = timed_ms(fns[label]) / steps
         host = 1e3 * (time.perf_counter() - t0) / steps
         times.setdefault(label, []).append(ms)
         print(f"batch timing {label}: {ms:.3f} ms/step (CUDA events around "
@@ -1295,7 +1340,7 @@ def phase_batch_timing(dev: dict, p, iq: np.ndarray, br) -> None:
     print(f"batch timing: eager / graph = {ratio:.2f}")
 
     def replays(when: str) -> float:
-        ms = [timed(br._run_call) for _ in range(3)]
+        ms = [timed_ms(br._run_call) for _ in range(3)]
         print(f"batch timing graph, the replays alone, {when}: "
               f"{min(ms) / BATCH_K:.3f} ms/step (best of 3 calls of "
               f"{BATCH_K} steps; all {[round(m / BATCH_K, 3) for m in ms]}),"
@@ -1321,9 +1366,11 @@ def phase_batch_timing(dev: dict, p, iq: np.ndarray, br) -> None:
     print(f"batch profile: the device ran fused_fft1_kernel {kernels} times "
           f"in a call of {BATCH_K} replays; the runner counts "
           f"{br.kernels_per_replay} per replay")
-    if kernels != BATCH_K * br.kernels_per_replay or kernels != BATCH_K:
-        raise AssertionError("batch: the device did not run the kernel once "
-                             "per replay")
+    # torch.profiler has been seen to drop a few of a call's 60,000-odd
+    # events (phase 18): fewer than K runs are printed, more would fail
+    if br.kernels_per_replay != 1 or not 1 <= kernels <= BATCH_K:
+        raise AssertionError("batch: the device ran the kernel more than "
+                             "once per replay, or never")
     busy, wall = prof["busy_ms"], prof["wall_ms"]
     # the device's time is taken under the profiler and the replays' wall
     # time without it, in the calls just after: their ratio is printed as
@@ -1622,6 +1669,337 @@ def phase_radar_wfm(dev: dict, device="cuda") -> None:
                              "the channels are not separated")
 
 
+# ---- device code ported in the later slice: phases 15 to 18 ------------
+
+def outputs_on(outs: list, device) -> list:
+    """RxOutputs with every tensor moved to ``device``."""
+    return [dataclasses.replace(o, **{
+        f.name: getattr(o, f.name).to(device)
+        for f in dataclasses.fields(o) if getattr(o, f.name) is not None})
+        for o in outs]
+
+
+def phase_rounds(dev: dict, device="cuda", tiny: bool = False) -> int:
+    """blanker_rounds=8 through Receiver and BatchRunner.  Returns the
+    kernel's launches over the two runs (8 + 16), each counted from
+    zero."""
+    from linrad_tpu_torch import derive_geometry, flagship_params
+    from linrad_tpu_torch.ops.fused_fft1 import fused_fft1
+    from linrad_tpu_torch.pipeline.batch import BatchRunner
+    on_card = torch.device(device).type == "cuda"
+    base = flagship_params(tiny=tiny, fft1_variant="pallas")
+    p = dataclasses.replace(base, blanker_rounds=ROUNDS)
+    geo = derive_geometry(p)
+    iq = make_input(geo)
+    fused_fft1.launches = 0
+    outs = run_rx(p, iq, device)
+    rx_launches = fused_fft1.launches
+    shapes = flagship_shapes(geo)
+    check_outputs(outs, shapes)
+    seq = run_rx(base, iq, device)
+    fits = [int(o.blanker_fitted) for o in outs]
+    seq_fits = [int(o.blanker_fitted) for o in seq]
+    print(f"rounds: blanker_rounds={ROUNDS}, Receiver {len(outs)} steps, "
+          f"fused_fft1 launches {rx_launches}; fits per step {fits} "
+          f"(sequential blanker, up to {p.max_pulses_per_block}: "
+          f"{seq_fits}); cleared "
+          f"{[int(o.blanker_cleared) for o in outs]} "
+          f"(sequential {[int(o.blanker_cleared) for o in seq]})")
+    if on_card and rx_launches != STEPS:
+        raise AssertionError(f"rounds: expected {STEPS} kernel launches")
+    # (at the tiny size phase 4's impulses stay under the fit threshold)
+    if max(fits) == 0 and not tiny:
+        raise AssertionError("rounds: the blanker fitted nothing")
+    compare_runs(outs, run_rx(dataclasses.replace(p, fft1_variant="xla"),
+                              iq, device), shapes, "rounds: ")
+
+    iq16 = make_input(geo, seed=2, steps=BATCH_STEPS)
+    br = BatchRunner(p, k_steps=BATCH_K, device=device)
+    br.tune(TUNE_HZ)
+    fused_fft1.launches = 0
+    got = br.process(iq16)
+    batch_launches = br.kernel_launches
+    wrapper = fused_fft1.launches
+    print(f"rounds: BatchRunner k_steps={BATCH_K}, {BATCH_STEPS} steps, "
+          f"{br.kernels_per_replay} fused_fft1 node(s) per replay, launches "
+          f"{batch_launches} (wrapper calls {wrapper}); capture "
+          f"{br.graphed.capture_seconds:.3f} s")
+    if on_card and (batch_launches != BATCH_STEPS or wrapper != 0):
+        raise AssertionError(f"rounds: expected {BATCH_STEPS} launches, all "
+                             f"from replays")
+    ref = eager_batch(p, TUNE_HZ, iq16, br.device)
+    for f in ("audio", "baseb"):
+        if not np.array_equal(got[f], ref[f]):
+            raise AssertionError(f"rounds: {f} of the graph differs from "
+                                 f"the eager loop")
+    print("rounds: audio and baseb from the graph bit-equal to the eager "
+          "loop of the same step")
+    if on_card:
+        phase_rounds_timing(dev, base, p, iq16)
+    return rx_launches + batch_launches
+
+
+def phase_rounds_timing(dev: dict, base, p, iq: np.ndarray) -> None:
+    """The graphed step at blanker_rounds 0 and ROUNDS: device kernels per
+    step from one profiled call each, then the replays alone in turns."""
+    from linrad_tpu_torch.ops.fused_fft1 import fused_fft1
+    from linrad_tpu_torch.pipeline.batch import BatchRunner
+    counted = fused_fft1.launches
+    runners = {}
+    for label, params in (("rounds=0", base), (f"rounds={ROUNDS}", p)):
+        br = BatchRunner(params, k_steps=BATCH_K)
+        br.tune(TUNE_HZ)
+        br.process(iq)
+        prof = profile_call(br._run_call)
+        print(f"rounds profile {label}: {prof['ops'] / BATCH_K:.1f} device "
+              f"kernels and copies per step, device time "
+              f"{prof['busy_ms'] / BATCH_K:.3f} ms/step (torch.profiler, "
+              f"one call of {BATCH_K} replays) [{dev['smi']}]")
+        runners[label] = br
+    times: dict = {}
+    for label in ("rounds=0", f"rounds={ROUNDS}", f"rounds={ROUNDS}",
+                  "rounds=0"):
+        br = runners[label]
+        ms = min(timed_ms(br._run_call) for _ in range(3)) / BATCH_K
+        times.setdefault(label, []).append(ms)
+        s = br.geo.samples_per_step
+        print(f"rounds timing {label}: {ms:.3f} ms/step, the replays alone "
+              f"(best of 3 calls of {BATCH_K}), {s / ms / 1e3:.3f} complex "
+              f"Msamples/s [{dev['smi']}]")
+    ratio = sum(times["rounds=0"]) / sum(times[f"rounds={ROUNDS}"])
+    print(f"rounds timing: rounds=0 / rounds={ROUNDS} = {ratio:.3f}")
+    fused_fft1.launches = counted
+
+
+def phase_mxu(dev: dict, device="cuda", tiny: bool = False) -> int:
+    """The matmul-DFT fft1 variants.  Returns the kernel's launches on
+    these paths (0)."""
+    from linrad_tpu_torch import derive_geometry, flagship_params
+    from linrad_tpu_torch.ops.fused_fft1 import fused_fft1
+    on_card = torch.device(device).type == "cuda"
+    base = flagship_params(tiny=tiny)
+    geo = derive_geometry(base)
+    iq = make_input(geo)
+    shapes = flagship_shapes(geo)
+    xla = run_rx(dataclasses.replace(base, fft1_variant="xla"), iq, device)
+    mxu_p = dataclasses.replace(base, fft1_variant="mxu")
+    bf_p = dataclasses.replace(base, fft1_variant="mxu_bf16")
+    fused_fft1.launches = 0
+    mxu = run_rx(mxu_p, iq, device)
+    launches = fused_fft1.launches
+    check_outputs(mxu, shapes)
+    print(f"mxu: fft1 {geo.fft1_size} as the four-step matmul DFT, "
+          f"{len(mxu)} steps, fused_fft1 launches {launches}")
+    compare_runs(mxu, xla, shapes, "mxu: ", what="mxu vs xla on the card")
+    if on_card:
+        saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = run_rx(mxu_p, iq, device)
+            left_on = torch.backends.cuda.matmul.allow_tf32
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+        for i, (a, b) in enumerate(zip(mxu, tf32)):
+            equal_outputs(a, b, f"mxu with TF32 switched on, step {i}")
+        if not left_on:
+            raise AssertionError("mxu: the caller's TF32 setting was not "
+                                 "restored")
+        print(f"mxu: with torch.backends.cuda.matmul.allow_tf32 = True set "
+              f"by the caller, every output field of the {len(tf32)} steps "
+              f"bit-equal to the run with it off; the setting restored "
+              f"(now {torch.backends.cuda.matmul.allow_tf32})")
+    fused_fft1.launches = 0
+    bf = run_rx(bf_p, iq, device)
+    launches += fused_fft1.launches
+    check_outputs(bf, shapes)
+    for k in shapes:
+        if k in ("blanker_fitted", "blanker_cleared"):
+            continue
+        worst = max(max_rel(getattr(a, k), getattr(b, k))
+                    for a, b in zip(bf, xla))
+        print(f"mxu_bf16 against xla on {device} (another function: bf16 "
+              f"operands), {k} max_rel {worst:.3e}")
+    same_signs = sum(torch.equal(torch.sign(a.liminfo), torch.sign(b.liminfo))
+                     for a, b in zip(bf, xla))
+    print(f"mxu_bf16: blanker_fitted {[int(o.blanker_fitted) for o in bf]} "
+          f"(xla {[int(o.blanker_fitted) for o in xla]}); liminfo sign "
+          f"pattern as xla's in {same_signs} of {len(bf)} steps")
+    if on_card:
+        # the same function on the CPU: the card's bf16 path to phase 4's
+        # bars
+        cpu = outputs_on(run_rx(bf_p, iq, "cpu"), device)
+        compare_runs(bf, cpu, shapes, "mxu_bf16: ", what="card vs CPU")
+    if launches:
+        raise AssertionError("mxu: the fused fft1 kernel was launched on a "
+                             "matmul-DFT path")
+    return launches
+
+
+def tilted_filtercorr(geo) -> np.ndarray:
+    """calibration.make_filtercorr of a response tilted by 8 dB across the
+    band, with a 1.6 dB ripple and a phase ramp."""
+    from linrad_tpu_torch.calibration import make_filtercorr
+    k = np.fft.fftfreq(geo.fft1_size)
+    resp = ((10 ** (0.2 * k) * (1.0 + 0.1 * np.cos(12 * np.pi * k)))
+            * np.exp(1j * 3.0 * k))
+    return make_filtercorr(resp)
+
+
+def phase_calibration(dev: dict, device="cuda", tiny: bool = False) -> int:
+    """A non-unity filtercorr through the kernel.  Returns the kernel's
+    launches over the calibrated receiver's steps."""
+    from linrad_tpu_torch import derive_geometry, flagship_params
+    from linrad_tpu_torch.ops.fused_fft1 import fused_fft1
+    base = flagship_params(tiny=tiny, fft1_variant="pallas")
+    geo = derive_geometry(base)
+    cal = {"filtercorr": tilted_filtercorr(geo)}
+    iq = make_input(geo)
+    fused_fft1.launches = 0
+    outs = run_rx(base, iq, device, cal)
+    launches = fused_fft1.launches
+    shapes = flagship_shapes(geo)
+    check_outputs(outs, shapes)
+    fc = np.abs(cal["filtercorr"][:, 0])
+    print(f"calibration: filtercorr |gain| {fc.min():.4f}-{fc.max():.4f} "
+          f"over {geo.fft1_size} bins, {len(outs)} steps, fused_fft1 "
+          f"launches {launches}; blanker_fitted "
+          f"{[int(o.blanker_fitted) for o in outs]}")
+    if torch.device(device).type == "cuda" and launches != STEPS:
+        raise AssertionError(f"calibration: expected {STEPS} launches")
+    compare_runs(outs, run_rx(dataclasses.replace(base, fft1_variant="xla"),
+                              iq, device, cal), shapes, "calibration: ")
+    return launches
+
+
+def fleet_dials(geo, r: int) -> list:
+    """r dials spread over the band away from the strong carrier, each a
+    third of an fftx bin off the bin centre (fractional tuning)."""
+    bin_hz = geo.timf1_sampling_speed / geo.fftx_size
+    return [f + bin_hz / 3.0 for f in multi_dials(geo, r)]
+
+
+def phase_fleet(dev: dict, device="cuda", tiny: bool = False,
+                r: int = FLEET_R) -> int:
+    """FleetRunner over r streams.  Returns the kernel's launches over its
+    FLEET_STEPS steps, as the runner counts them."""
+    from linrad_tpu_torch import derive_geometry, flagship_params
+    from linrad_tpu_torch.ops.fused_fft1 import fused_fft1
+    from linrad_tpu_torch.parallel import FleetRunner
+    on_card = torch.device(device).type == "cuda"
+    p = flagship_params(tiny=tiny, fft1_variant="pallas")
+    geo = derive_geometry(p)
+    dials = fleet_dials(geo, r)
+    iq = np.stack([make_input(geo, steps=FLEET_STEPS, tones=(f,))[:, 0]
+                   for f in dials])
+    with warnings.catch_warnings():
+        # an operation without a batching rule would loop over the streams
+        warnings.filterwarnings("error", message=VMAP_SLOW_PATH)
+        fl = FleetRunner(p, r, k_steps=FLEET_K, outputs=FLEET_FIELDS,
+                         device=device)
+        fl.tune(dials)
+        fused_fft1.launches = 0
+        got = fl.process(iq)
+    launches = fl.kernel_launches
+    wrapper = fused_fft1.launches
+    pool = graph_pool_bytes(fl.graphed.graph) if on_card else 0
+    print(f"fleet: FleetRunner {r} streams x k_steps={FLEET_K} on "
+          f"{fl.device}, {FLEET_STEPS} steps of {geo.samples_per_step} "
+          f"samples each; {fl.kernels_per_replay} fused_fft1 node(s) per "
+          f"replay, launches {launches} (wrapper calls {wrapper}); capture "
+          f"{fl.graphed.capture_seconds:.3f} s, graph pool {pool} bytes "
+          f"[{dev['smi']}]")
+    if on_card and (fl.kernels_per_replay != 1 or launches != FLEET_STEPS
+                    or wrapper != 0 or pool <= 0):
+        raise AssertionError("fleet: expected one kernel launch per step for "
+                             "all streams, from the replays")
+    bb = geo.baseband_samples_per_step
+    for f in FLEET_FIELDS:
+        if got[f].shape != (r, FLEET_STEPS * bb, 1) \
+                or not np.isfinite(got[f]).all():
+            raise AssertionError(f"fleet: {f} has the wrong shape or is not "
+                                 f"finite")
+    peaks = [audio_peak_hz(torch.from_numpy(got["audio"][k, :, 0]),
+                           geo.baseband_sampling_speed) for k in range(r)]
+    print(f"fleet: audio peaks (Hz) {[round(float(x), 1) for x in peaks]}")
+    if not tiny and any(abs(x - BFO_HZ) > 20.0 for x in peaks):
+        raise AssertionError("fleet: a stream's tone is not at the BFO pitch")
+    for k in sorted({0, r // 2, r - 1}):
+        single = run_rx(p, iq[k], device, tune_hz=dials[k])
+        equal = True
+        worst = {}
+        for f in FLEET_FIELDS:
+            mine = torch.from_numpy(got[f][k])
+            ref = torch.cat([getattr(o, f) for o in single]).cpu()
+            equal = equal and torch.equal(mine, ref)
+            worst[f] = (max_rel(mine[:bb], ref[:bb]),
+                        max_rel(mine[bb:], ref[bb:]))
+        print(f"fleet: stream {k} (dial {dials[k]:.2f} Hz) against a single "
+              f"Receiver: bit-equal {equal}; " + "; ".join(
+                  f"{f} step 0 max_rel {a:.3e}, steps 1-{FLEET_STEPS - 1} "
+                  f"{b:.3e}" for f, (a, b) in worst.items()))
+        bar0 = {"audio": START_AUDIO_TOL, "baseb": CHAIN_TOL_OTHER}
+        bar = {"audio": CHAIN_TOL["audio"], "baseb": CHAIN_TOL_OTHER}
+        if not tiny and any(a > bar0[f] or b > bar[f]
+                            for f, (a, b) in worst.items()):
+            raise AssertionError(f"fleet: stream {k} outside phase 4's bars")
+    if on_card:
+        phase_fleet_timing(dev, p, dials, iq, fl)
+    return launches
+
+
+def phase_fleet_timing(dev: dict, p, dials, iq: np.ndarray, fl) -> None:
+    """R = 1 and R = FLEET_R in turns; the profiled call; the fold."""
+    from linrad_tpu_torch.ops.fused_fft1 import fused_fft1
+    from linrad_tpu_torch.parallel import FleetRunner
+    from linrad_tpu_torch.utils.timing import graph_ms
+    counted = fused_fft1.launches
+    one = FleetRunner(p, 1, k_steps=FLEET_K, outputs=FLEET_FIELDS)
+    one.tune(dials[:1])
+    fleets = {1: (one, iq[:1]), fl.n: (fl, iq)}
+    s = fl.geo.samples_per_step
+    for r in (1, fl.n):
+        runner, x = fleets[r]
+        runner.process(x)
+        prof = profile_call(runner._run_call)
+        kern = sum(n for name, _, n in prof["by_name"]
+                   if "fused_fft1_kernel" in name)
+        print(f"fleet profile R={r}: {prof['ops'] / FLEET_K:.1f} device "
+              f"kernels and copies per step, fused_fft1_kernel run {kern} "
+              f"times in {FLEET_K} replays, device time "
+              f"{prof['busy_ms'] / FLEET_K:.3f} ms/step (torch.profiler) "
+              f"[{dev['smi']}]")
+        # the runner's count says one launch per replay; here the
+        # profiler must not see more (a loop over the streams would show
+        # R per replay).  It has been seen to drop a few of a call's
+        # 66,000 events, so fewer than K are reported, not failed.
+        if not 1 <= kern <= FLEET_K:
+            raise AssertionError("fleet: the device ran the kernel more "
+                                 "than once per replay, or never")
+    times: dict = {}
+    for r in (1, fl.n, fl.n, 1):
+        runner, x = fleets[r]
+        whole = timed_ms(lambda: runner.process(x)) / FLEET_STEPS
+        alone = min(timed_ms(runner._run_call) for _ in range(3)) / FLEET_K
+        times.setdefault(r, []).append(alone)
+        print(f"fleet timing R={r}: {whole:.3f} ms/step for whole process() "
+              f"calls, {alone:.3f} ms/step the replays alone (best of 3 "
+              f"calls of {FLEET_K}); aggregate {r * s / alone / 1e3:.3f} "
+              f"complex Msamples/s ({s / alone / 1e3:.3f} per stream) "
+              f"[{dev['smi']}]")
+    print(f"fleet timing: R={fl.n} step / R=1 step = "
+          f"{sum(times[fl.n]) / sum(times[1]):.3f}; graph pools "
+          f"{graph_pool_bytes(one.graphed.graph)} bytes at R=1, "
+          f"{graph_pool_bytes(fl.graphed.graph)} at R={fl.n}")
+    frames = torch.zeros((fl.n, fl.geo.fft1_frames_per_step,
+                          fl.geo.fft1_size, 1), dtype=torch.complex64,
+                         device=fl.device)
+    fold = graph_ms(lambda: frames.permute(1, 2, 0, 3).contiguous(), 50, 20)
+    print(f"fleet: the vmap rule's fold of {tuple(frames.shape)} frames into "
+          f"{(frames.shape[1], frames.shape[2], fl.n)} alone: {fold:.5f} ms "
+          f"(device-only, CUDA graph) [{dev['smi']}]")
+    fused_fft1.launches = counted
+
+
 # stage functions of pipeline/chain.py: (module attribute of chain, name)
 STAGES = [(None, "fft1_step"), ("sellim_ops", "update_liminfo"),
           ("sellim_ops", "liminfo_gains"), (None, "timf2_step"),
@@ -1722,6 +2100,10 @@ def main() -> None:
     launches += phase_file(dev)
     phase_latency(dev)
     phase_radar_wfm(dev)
+    launches += phase_rounds(dev)
+    launches += phase_mxu(dev)
+    launches += phase_calibration(dev)
+    launches += phase_fleet(dev)
     print(json.dumps({"kernels": [{
         "name": "fused_fft1", "route": "cuda",
         "source": "linrad_tpu_torch/csrc/fused_fft1.cu",

@@ -3,9 +3,10 @@
 The JAX package ``linrad_tpu`` stays the reference.  This package keeps
 its own copies of the modules that need no JAX (``params``, ``geometry``,
 ``ops.windows``, ``utils.llsq``, ``weak.afc``, ``errors``, ``io.wav``,
-``io.siggen``, ``io.rawfile``, ``runtime`` with its C++ library),
-imports nothing of ``linrad_tpu``, and returns the same ``RxOutputs`` fields, in PyTorch, with the TPU's Pallas kernel rewritten as a CUDA
-kernel for Hopper (``csrc/fused_fft1.cu``).
+``io.siggen``, ``io.rawfile``, ``runtime`` with its C++ library,
+``calibration``), imports nothing of ``linrad_tpu``, and returns the same
+``RxOutputs`` fields, in PyTorch, with the TPU's Pallas kernel rewritten
+as a CUDA kernel for Hopper (``csrc/fused_fft1.cu``).
 
 Ported so far: the whole receive chain, ``pipeline.chain.make_rx_step``
 and ``make_multi_rx_step`` with ``pipeline.receiver.Receiver`` and
@@ -20,10 +21,14 @@ a CUDA graph by ``GraphedStep``), ``pipeline.checkpoint`` (save and
 resume), ``pipeline.latency`` (the latency budget), ``Receiver.run_file``
 (WAV replay through ``runtime.FilePrefetcher``), ``runtime.watchdog``,
 the step timers of ``utils.timing``, ``ops.demod.wfm_stereo_decode`` and
-the radar tracker ``weak.radar``.  ``blanker_rounds>0``, the ``mxu`` fft1
-variants and ``shards>1`` raise NotImplementedError naming their ROADMAP
-entry; the scale-out (``parallel/``), the transmit side and the display
-and network modules are still to come.
+the radar tracker ``weak.radar``; the round-parallel clever blanker
+(``blanker_rounds>0``), the matmul-DFT fft1 variants (``"mxu"``,
+``"mxu_bf16"``), the calibration module (``calibration``, a copy) and
+``parallel.FleetRunner`` (many receivers as one ``torch.func.vmap``'d
+step, one fused fft1 launch for all of them).  ``shards>1`` raises
+NotImplementedError naming its ROADMAP entry; the time-sharded steps,
+the transmit side and the display and network modules are still to
+come.
 
 This package never imports jax or ``linrad_tpu``;
 ``convert.params_from_jax`` turns the JAX package's ``RxParams`` into

@@ -98,7 +98,9 @@ def tables_from_numpy(tree: dict, device) -> RxTables:
 
 
 def state_from_numpy(tree: dict, device) -> RxState:
-    """Flat numpy dict (JAX ``RxState`` flattened) -> port RxState."""
+    """Flat numpy dict (JAX ``RxState`` flattened) -> port RxState; the
+    arrays keep their shapes, so a fleet's state, stacked over a leading
+    stream axis, carries across as it is."""
     return _build(RxState, tree, device, "")
 
 

@@ -11,7 +11,10 @@ above threshold, widened by the sqrt(peak/noise)/100 rule
 The fit loop runs ``max_pulses`` iterations on device tensors: every
 dynamic position (candidate, fit window, block) is an index tensor that
 stays on the device, so the loop never waits for the host.  The padded
-working copies are updated in place.
+working copies are updated in place, by ``index_put_``, which
+``torch.func.vmap`` batches (a fleet of receivers runs this loop under
+it).  The round-parallel variant (``rounds>0``) fits every locally
+dominant block's strongest candidate at once, ``rounds`` times.
 """
 
 from __future__ import annotations
@@ -108,6 +111,44 @@ def _pad_rows(x: torch.Tensor, lead: int, trail: int, value=0) -> torch.Tensor:
     return torch.cat([x.new_full(shape, value), x, x.new_full(tshape, value)])
 
 
+def _fit(win: torch.Tensor, oldp: torch.Tensor, tables: BlankerTables,
+         pw: int, valid: torch.Tensor):
+    """The fit-and-subtract test on fit windows win (..., pul, C) with
+    their powers oldp (..., pul) (blank1.c:36-232); any leading axes are
+    independent fits.  Returns (the windows to write back, their powers,
+    the success flags (...)): the subtracted window where the fit
+    succeeds, the window as it was elsewhere."""
+    bank = tables.refbank
+    nref, pul = bank.shape
+    half = pul // 2
+    derot = win * tables.phasefunc[:, None]
+    ctr = derot[..., half - 1: half + 2, :]                  # (..., 3, C)
+    ph = (ctr.abs() * ctr).sum(-2)                           # (..., C)
+    unit = ph / torch.clamp(ph.abs(), min=1e-20)
+    rot = derot * unit.conj()[..., None, :]
+    seg = rot[..., half - pw: half + pw + 1, :]
+    ipow = (seg.real ** 2).sum((-2, -1))
+    qpow = (seg.imag ** 2).sum((-2, -1))
+    shape_ok = qpow <= 0.25 * ipow                           # blank1.c:121
+    a = rot.real.sum(-1)                                     # (..., pul)
+    t3 = 2.0 * (a[..., half - 1] + a[..., half + 1] - 2.0 * a[..., half])
+    t4 = torch.where(t3.abs() > 1e-20,
+                     (a[..., half - 1] - a[..., half + 1]) / t3, 0.0)
+    frac = torch.sign(t4) * torch.sqrt(0.5 * t4.abs())
+    # clamp before truncating: XLA's float->int conversion saturates
+    j = torch.clamp(nref * (frac + 0.5) + 0.5, 0, nref - 1).to(torch.int64)
+    ref = bank.index_select(0, j.reshape(-1)).reshape(j.shape + (pul,))
+    # a true pulse is win = coef * bank_j with coef = A*e^{i*phi}
+    # (blank1.c:157-162)
+    coef = unit * rot[..., half, :].real                     # (..., C)
+    neww = win - ref[..., :, None] * coef[..., None, :]
+    newp = (neww.real ** 2 + neww.imag ** 2).sum(-1)
+    ratio = newp.sum(-1) / torch.clamp(oldp.sum(-1), min=1e-20)
+    success = valid & shape_ok & (ratio <= 0.5)              # blank1.c:188
+    return (torch.where(success[..., None, None], neww, win),
+            torch.where(success[..., None], newp, oldp), success)
+
+
 def _fit_subtract(wpad: torch.Tensor, ppad: torch.Tensor,
                   tables: BlankerTables, pw: int, p: torch.Tensor,
                   valid: torch.Tensor) -> torch.Tensor:
@@ -116,46 +157,22 @@ def _fit_subtract(wpad: torch.Tensor, ppad: torch.Tensor,
     success flag.  The window start is clamped into the array, as JAX's
     dynamic_slice clamps it."""
     total = wpad.shape[0]
-    bank = tables.refbank
-    nref, pul = bank.shape
-    half = pul // 2
-    start = torch.clamp(p - half, 0, total - pul)
+    pul = tables.refbank.shape[1]
+    start = torch.clamp(p - pul // 2, 0, total - pul)
     rows = start + torch.arange(pul, device=wpad.device)
-    win = wpad.index_select(0, rows)                         # (pul, C)
-    derot = win * tables.phasefunc[:, None]
-    ctr = derot[half - 1: half + 2]                          # (3, C)
-    ph = (ctr.abs() * ctr).sum(0)                            # (C,)
-    unit = ph / torch.clamp(ph.abs(), min=1e-20)
-    rot = derot * unit.conj()[None, :]
-    seg = rot[half - pw: half + pw + 1]
-    ipow = (seg.real ** 2).sum()
-    qpow = (seg.imag ** 2).sum()
-    shape_ok = qpow <= 0.25 * ipow                           # blank1.c:121
-    a = rot.real.sum(1)                                      # (pul,)
-    t3 = 2.0 * (a[half - 1] + a[half + 1] - 2.0 * a[half])
-    t4 = torch.where(t3.abs() > 1e-20, (a[half - 1] - a[half + 1]) / t3,
-                     0.0)
-    frac = torch.sign(t4) * torch.sqrt(0.5 * t4.abs())
-    # clamp before truncating: XLA's float->int conversion saturates
-    j = torch.clamp(nref * (frac + 0.5) + 0.5, 0, nref - 1).to(torch.int64)
-    ref = bank.index_select(0, j.reshape(1))[0]              # (pul,)
-    # a true pulse is win = coef * bank_j with coef = A*e^{i*phi}
-    # (blank1.c:157-162)
-    coef = unit * rot[half].real                             # (C,)
-    neww = win - ref[:, None] * coef[None, :]
-    newp = (neww.real ** 2 + neww.imag ** 2).sum(1)
-    oldp = ppad.index_select(0, rows)
-    ratio = newp.sum() / torch.clamp(oldp.sum(), min=1e-20)
-    success = valid & shape_ok & (ratio <= 0.5)              # blank1.c:188
-    wpad.index_copy_(0, rows, torch.where(success, neww, win))
-    ppad.index_copy_(0, rows, torch.where(success, newp, oldp))
+    wvals, pvals, success = _fit(wpad.index_select(0, rows),
+                                 ppad.index_select(0, rows), tables, pw,
+                                 valid)
+    wpad.index_put_((rows,), wvals)
+    ppad.index_put_((rows,), pvals)
     return success
 
 
 def clever_blanker(weak: torch.Tensor, pwr: torch.Tensor,
                    tables: BlankerTables, noise_floor: torch.Tensor,
                    limit_amp: float, pulsewidth: int, max_pulses: int,
-                   block_size: int = 256):
+                   block_size: int = 256, rounds: int = 0,
+                   eligible: torch.Tensor | None = None):
     """Fit-and-subtract up to ``max_pulses`` pulses from the weak stream.
 
     weak: (S, C) complex64; pwr: (S,) float32 channel-summed power.
@@ -163,8 +180,20 @@ def clever_blanker(weak: torch.Tensor, pwr: torch.Tensor,
 
     ``block_size`` > 0 keeps block maxima of the candidate power so each
     iteration reads O(S/block_size + block_size) values;
-    ``block_size=0`` is the flat global argmax, kept to cross-check.  The
-    JAX version's round-parallel variant (``rounds>0``) is not ported."""
+    ``block_size=0`` is the flat global argmax, kept to cross-check.
+
+    ``rounds`` > 0 selects the round-parallel variant instead: per round,
+    the strongest candidate of every locally dominant block (of
+    ``block_size or 256`` samples) is fitted and subtracted at once, so
+    the sequential depth is ``rounds``, not ``max_pulses``.  ``eligible``
+    (S,) bool restricts its candidate centres (the fit windows still read
+    every sample)."""
+    if rounds:
+        return _clever_blanker_parallel(weak, pwr, tables, noise_floor,
+                                        limit_amp, pulsewidth, rounds,
+                                        block_size or 256, eligible)
+    if eligible is not None:
+        raise ValueError("clever_blanker: eligible needs rounds > 0")
     if block_size:
         return _clever_blanker_blocked(weak, pwr, tables, noise_floor,
                                        limit_amp, pulsewidth, max_pulses,
@@ -187,7 +216,7 @@ def clever_blanker(weak: torch.Tensor, pwr: torch.Tensor,
         success = _fit_subtract(wpad, ppad, tables, pw, p, valid)
         # retire the candidate region so the loop progresses
         rpos = torch.clamp(p - pw, 0, total - (2 * pw + 1)) + span
-        active.index_copy_(0, rpos, active.index_select(0, rpos) & ~valid)
+        active.index_put_((rpos,), active.index_select(0, rpos) & ~valid)
         nfit = nfit + success.to(torch.int32)
     return wpad[pul: pul + s], ppad[pul: pul + s], nfit
 
@@ -235,9 +264,74 @@ def _clever_blanker_blocked(weak, pwr, tables, noise_floor, limit_amp,
         retired = (pos - p).abs() <= pw
         act2 = (cwin >= 0.0) & ~(valid & retired)
         cwin2 = torch.where(act2, pwin, -1.0)
-        candp.index_copy_(0, pos, cwin2)
-        bmax.index_copy_(0, b0 + two, cwin2.reshape(2, blk).amax(1))
+        candp.index_put_((pos,), cwin2)
+        bmax.index_put_((b0 + two,), cwin2.reshape(2, blk).amax(1))
         nfit = nfit + success.to(torch.int32)
+    return wpad[lead: lead + s], ppad[lead: lead + s], nfit
+
+
+def _clever_blanker_parallel(weak, pwr, tables, noise_floor, limit_amp,
+                             pulsewidth, rounds, blk, eligible=None):
+    """Round-parallel fit-subtract: every round fits the strongest
+    candidate of each locally dominant block at once.
+
+    A block is selected only when its maximum beats the block before it
+    and is not beaten by the block after it, so two adjacent blocks are
+    never both selected: their candidates are at least blk+1 > pul + 2 pw
+    apart, the fit windows are disjoint, and the subtractions equal the
+    same ones made one after the other.  Per round: one block max and
+    argmax over (nblk, blk), a gather of the (nblk, pul, C) windows, the
+    fit of :func:`_fit` on all of them, and a scatter back in place.  A
+    block that is not selected writes to one sink row past the end of the
+    padded arrays, which is sliced off: several such writes may land
+    there in any order, and every real row is written by one window at
+    most, so the result does not depend on the order."""
+    s, c = weak.shape
+    dev = weak.device
+    pul = tables.refbank.shape[1]
+    half = pul // 2
+    pw = pulsewidth
+    if not pul + 2 * pw + 1 <= blk:
+        raise ValueError(f"blanker block {blk} too small for pulse "
+                         f"{pul} and width {pw}")
+    thr = _threshold(limit_amp, noise_floor)
+    # one whole block of padding on each side: every fit window at a real
+    # candidate stays inside, and padded candidates (-1) never win
+    lead = blk
+    total = (-(-(lead + s) // blk) + 1) * blk
+    trail = total - s - lead
+    wpad = _pad_rows(weak, lead, trail + 1)
+    ppad = _pad_rows(pwr, lead, trail + 1)
+    cand0 = pwr if eligible is None else torch.where(eligible, pwr, -1.0)
+    candp = _pad_rows(cand0, lead, trail + 1, -1.0)
+    nblk = total // blk
+    first = torch.arange(nblk, device=dev) * blk
+    rel = torch.arange(pul, device=dev) - half
+    edge = torch.full((1,), -float("inf"), device=dev)
+    nfit = torch.zeros((), dtype=torch.int32, device=dev)
+    for _ in range(rounds):
+        cand2 = candp[:total].reshape(nblk, blk)
+        bmax = cand2.amax(1)
+        p = first + torch.argmax(cand2, 1)                   # (nblk,)
+        # the block before must lose, the block after must not win: the
+        # earlier block wins ties, as an argmax over them would
+        bprev = torch.cat([edge, bmax[:-1]])
+        bnext = torch.cat([bmax[1:], edge])
+        sel = (bmax > thr) & (bmax > bprev) & (bmax >= bnext)
+        rows = p[:, None] + rel[None, :]                     # (nblk, pul)
+        flat = torch.clamp(rows, 0, total - 1).reshape(-1)
+        win = wpad.index_select(0, flat).reshape(nblk, pul, c)
+        oldp = ppad.index_select(0, flat).reshape(nblk, pul)
+        wvals, pvals, success = _fit(win, oldp, tables, pw, sel)
+        # retire +-pw around each fitted candidate (inside its window)
+        cold = candp.index_select(0, flat).reshape(nblk, pul)
+        retired = (rows - p[:, None]).abs() <= pw
+        cvals = torch.where(retired | (cold < 0.0), -1.0, pvals)
+        dest = (torch.where(sel[:, None], rows, total),)
+        wpad.index_put_(dest, wvals)
+        ppad.index_put_(dest, pvals)
+        candp.index_put_(dest, cvals)
+        nfit = nfit + success.sum().to(torch.int32)
     return wpad[lead: lead + s], ppad[lead: lead + s], nfit
 
 

@@ -5,7 +5,9 @@ kernel).  On a CUDA tensor :func:`fused_fft1` launches the hand-written
 Hopper kernel in ``csrc/fused_fft1.cu``, once; on a CPU tensor it runs
 :func:`fused_fft1_reference`, the plain PyTorch version of the same
 function.  There is no fallback between the two: a CUDA tensor either
-goes through the kernel or raises.
+goes through the kernel or raises.  It is a PyTorch custom operator, so
+that ``torch.func.vmap`` over a fleet of receivers batches it into one
+launch (:func:`_fused_fft1_vmap`).
 
 The kernel is built with ``nvcc`` for ``sm_90a`` at first use into
 ``build/linrad_tpu_torch/`` under the repository root and loaded with
@@ -254,7 +256,22 @@ def fused_fft1(frames: torch.Tensor, window: torch.Tensor,
     filtercorr: (N, C) complex64 calibration spectrum
 
     Returns (spec (B, N, C) complex64, power_sum (N, C) float32 = sum over
-    B of |spec|^2).  N must be a power of two in [128, 4096]."""
+    B of |spec|^2).  N must be a power of two in [128, 4096].
+
+    A PyTorch custom operator (``torch.ops.linrad_tpu_torch.fused_fft1``)
+    with a rule for ``torch.func.vmap``: under vmap over R streams, frames
+    (R, B, N, C) are folded into the channel axis, (B, N, R C), and one
+    launch serves every stream (see :func:`_fused_fft1_vmap`)."""
+    _check(frames, window, filtercorr)
+    if frames.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_fft1: unsupported device {frames.device}")
+    return torch.ops.linrad_tpu_torch.fused_fft1(frames, window, filtercorr)
+
+
+@torch.library.custom_op("linrad_tpu_torch::fused_fft1", mutates_args=())
+def _fused_fft1_op(frames: torch.Tensor, window: torch.Tensor,
+                   filtercorr: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
     b, n, c = _check(frames, window, filtercorr)
     if frames.device.type == "cpu":
         return fused_fft1_reference(frames, window, filtercorr)
@@ -289,6 +306,39 @@ def fused_fft1(frames: torch.Tensor, window: torch.Tensor,
     else:
         fused_fft1.launches += 1
     return spec, psum
+
+
+@_fused_fft1_op.register_fake
+def _fused_fft1_fake(frames, window, filtercorr):
+    _b, n, c = frames.shape
+    return (torch.empty_like(frames),
+            frames.new_empty((n, c), dtype=torch.float32))
+
+
+@_fused_fft1_op.register_vmap
+def _fused_fft1_vmap(info, in_dims, frames, window, filtercorr):
+    """R streams in one launch: the stream axis is folded into the
+    channel axis.  frames (R, B, N, C) -> (B, N, R, C), contiguous, read
+    as (B, N, R C) (one copy of the frames); filtercorr (N, C) expanded,
+    or (R, N, C) permuted, to (N, R C); the window is shared.  The
+    results come back as views: spec (R, B, N, C), power_sum (R, N, C)."""
+    f_dim, w_dim, c_dim = in_dims
+    if w_dim is not None:
+        raise NotImplementedError("fused_fft1 under vmap: the window must "
+                                  "be shared by every stream")
+    r = info.batch_size
+    frames = (frames.movedim(f_dim, 0) if f_dim is not None
+              else frames.expand((r,) + tuple(frames.shape)))
+    _r, b, n, c = frames.shape
+    folded = frames.permute(1, 2, 0, 3).contiguous().reshape(b, n, r * c)
+    if c_dim is None:
+        fc = filtercorr[:, None, :].expand(n, r, c)
+    else:
+        fc = filtercorr.movedim(c_dim, 0).permute(1, 0, 2)
+    fc = fc.contiguous().reshape(n, r * c)
+    spec, psum = fused_fft1(folded, window, fc)
+    return ((spec.reshape(b, n, r, c).permute(2, 0, 1, 3),
+             psum.reshape(n, r, c).permute(1, 0, 2)), (0, 0))
 
 
 def empty_launch(device: torch.device) -> None:

@@ -199,18 +199,7 @@ class BatchRunner:
     def __init__(self, params: RxParams, k_steps: int = 16,
                  outputs: tuple = ("audio", "baseb"),
                  calibration: dict | None = None, *, device="cuda"):
-        self.device = resolve_device(device)
-        self.params = params
-        self.geo = derive_geometry(params)
-        self.k = int(k_steps)
-        self.outputs = tuple(outputs)
-        self.tables = RxTables.create(self.geo, params, self.device,
-                                      calibration)
-        fir = self.tables.mix2.fir
-        state = RxState.create(
-            self.geo, self.device, spur=params.spur_enable,
-            pol=params.pol_adapt_enable,
-            fir_len=int(fir.shape[0]) if fir is not None else 0)
+        self._setup(params, k_steps, outputs, calibration, device)
         step = make_rx_step(self.geo, params,
                             blanker_pulsewidth=_pulsewidth(self.geo))
         self._tune_bin = torch.zeros((), dtype=torch.int64,
@@ -223,9 +212,35 @@ class BatchRunner:
             shape, dtype = (2 * geo.samples_per_step, geo.channels), \
                 torch.float32
         self._rows = shape[0]
+        self._capture(step, self._new_state(), shape, dtype,
+                      (self._tune_bin,))
+
+    def _setup(self, params, k_steps, outputs, calibration, device) -> None:
+        """Device, geometry and tables."""
+        self.device = resolve_device(device)
+        self.params = params
+        self.geo = derive_geometry(params)
+        self.k = int(k_steps)
+        self.outputs = tuple(outputs)
+        self.tables = RxTables.create(self.geo, params, self.device,
+                                      calibration)
+
+    def _new_state(self) -> RxState:
+        """The state of one receiver at its start."""
+        fir = self.tables.mix2.fir
+        return RxState.create(
+            self.geo, self.device, spur=self.params.spur_enable,
+            pol=self.params.pol_adapt_enable,
+            fir_len=int(fir.shape[0]) if fir is not None else 0)
+
+    def _capture(self, step, state, shape: tuple, dtype: torch.dtype,
+                 args: tuple) -> None:
+        """The step as a GraphedStep on one step's input (shape, dtype),
+        the K-deep input and output stacks on the device, and the host
+        buffers."""
         recorded = fused_fft1.captured
         self.graphed = GraphedStep(step, self.tables, state, shape, dtype,
-                                   (self._tune_bin,))
+                                   args)
         self.kernels_per_replay = fused_fft1.captured - recorded
         self._blocks = torch.zeros((self.k, *shape), dtype=dtype,
                                    device=self.device)
@@ -273,16 +288,27 @@ class BatchRunner:
 
     def _collect(self, source: dict, collected: dict) -> None:
         for f in self.outputs:
-            a = source[f].numpy()               # (K, S_f, C)
-            collected[f].append(a.reshape(-1, a.shape[-1]).copy())
+            collected[f].append(source[f].numpy().copy())   # (K, ...)
+
+    def _segments(self, iq: np.ndarray) -> list:
+        """The input of each call, shaped as the K-deep input stack."""
+        if iq.ndim == 1:
+            iq = iq[:, None]
+        per = self.k * self._rows
+        return [iq[i * per:(i + 1) * per].reshape(self._blocks.shape)
+                for i in range(iq.shape[0] // per)]
+
+    def _concat(self, stacks: list) -> np.ndarray:
+        """The calls' (K, S_f, C) stacks of one field as one stream."""
+        if not stacks:
+            return np.zeros((0, 1))
+        return np.concatenate([a.reshape(-1, a.shape[-1]) for a in stacks])
 
     def process(self, iq: np.ndarray) -> dict[str, np.ndarray]:
         """Process a recording; returns concatenated output streams.
         Trailing samples short of a full K-step call are dropped."""
-        if iq.ndim == 1:
-            iq = iq[:, None]
-        per = self.k * self._rows
-        n_calls = iq.shape[0] // per
+        segments = self._segments(iq)
+        n_calls = len(segments)
         collected: dict[str, list] = {f: [] for f in self.outputs}
 
         def drain(slot: _Slot) -> None:
@@ -291,8 +317,7 @@ class BatchRunner:
                 self._collect(slot.out, collected)
                 slot.busy = False
 
-        for i in range(n_calls):
-            seg = iq[i * per:(i + 1) * per].reshape(self._blocks.shape)
+        for i, seg in enumerate(segments):
             if self._slots is None:             # the CPU: no staging
                 self._blocks.copy_(torch.from_numpy(np.ascontiguousarray(seg)))
                 self._run_call()
@@ -310,5 +335,4 @@ class BatchRunner:
         if self._slots is not None:
             drain(self._slots[n_calls % 2])
             drain(self._slots[(n_calls + 1) % 2])
-        return {f: (np.concatenate(v) if v else np.zeros((0, 1)))
-                for f, v in collected.items()}
+        return {f: self._concat(v) for f, v in collected.items()}

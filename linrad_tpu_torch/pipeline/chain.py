@@ -18,9 +18,8 @@ runs it with no leading axis; :func:`make_multi_rx_step` runs the same
 code once on an ``NBState`` stacked over K sub-receivers, so K
 sub-receivers cost one set of device operations, not K.
 
-Not ported, and refused by :func:`check_supported`: ``blanker_rounds>0``
-(the TPU-only round-parallel blanker), the ``mxu`` fft1 variants and
-time-sharded steps (``shards>1``).
+Not ported yet, and refused by :func:`check_supported`: time-sharded
+steps (``shards>1``).
 """
 
 from __future__ import annotations
@@ -36,7 +35,6 @@ from ..ops import blanker as blanker_ops
 from ..ops import demod as demod_ops
 from ..ops import sellim as sellim_ops
 from ..ops.blanker import BlankerState, BlankerTables
-from ..ops.fft import UNPORTED_VARIANTS
 from ..ops.fft1 import FFT1State, FFT1Tables, fft1_step
 from ..ops.fft2 import (FFT2State, FFT2Tables, fft2_power_update,
                         fft2_transform)
@@ -55,17 +53,9 @@ from ..weak.spur import (SpurState, spur_subtract_step,
 
 def check_supported(p: RxParams) -> None:
     """Raise NotImplementedError for a configuration the port lacks."""
-    refused = []
-    if p.blanker_rounds > 0:
-        refused.append("blanker_rounds>0, the TPU-only round-parallel "
-                       "blanker (ROADMAP 'Not ported')")
-    if p.fft1_variant in UNPORTED_VARIANTS:
-        refused.append(f"fft1_variant {p.fft1_variant!r} (ROADMAP queue 2 "
-                       f"item 2)")
     if p.shards != 1:
-        refused.append("time-sharded steps (ROADMAP queue 1 item 14)")
-    if refused:
-        raise NotImplementedError("not ported yet: " + "; ".join(refused))
+        raise NotImplementedError("not ported yet: time-sharded steps, "
+                                  "shards>1 (ROADMAP queue 1 item 6)")
 
 
 @dataclass(frozen=True)
@@ -268,7 +258,7 @@ def _wideband_front(geo: Geometry, p: RxParams, blanker_pulsewidth: int,
         weak, wpwr, n_fit = blanker_ops.clever_blanker(
             weak, wpwr, tables.blanker, nf, p.clever_bln_limit,
             blanker_pulsewidth, p.max_pulses_per_block,
-            block_size=p.blanker_block_size)
+            block_size=p.blanker_block_size, rounds=p.blanker_rounds)
         weak, wpwr, n_clear = blanker_ops.stupid_blanker(
             weak, wpwr, nf, p.stupid_bln_limit, blanker_pulsewidth)
     t2_tail, fftx_spec = fft2_transform(geo, tables.fft2, state.fft2.tail,

@@ -121,15 +121,14 @@ class Receiver:
     # centre (fg.passband_center).
     center_frequency_hz: float = 0.0
 
-    def __init__(self, params: RxParams, *, device="cuda",
-                 calibration: dict | None = None,
-                 audio_out_rate: float | None = None):
-        """device: where tables, state and every step live ("cuda",
-        "cuda:1", "cpu"); the default needs a CUDA device.  calibration:
-        optional {'filtercorr': ..., 'iq_corr': ...}.  audio_out_rate:
-        resample the audio to this rate (the rx_output D/A resampler,
-        rxout.c:266); it must give an integer output count per step
-        (exact rational, ops/resample.py)."""
+    def __init__(self, params: RxParams, calibration: dict | None = None,
+                 audio_out_rate: float | None = None, *, device="cuda"):
+        """calibration: optional {'filtercorr': ..., 'iq_corr': ...} (from
+        :mod:`..calibration`).  device: where tables, state and every step
+        live ("cuda", "cuda:1", "cpu"); the default needs a CUDA device.
+        audio_out_rate: resample the audio to this rate (the rx_output
+        D/A resampler, rxout.c:266); it must give an integer output count
+        per step (exact rational, ops/resample.py)."""
         check_supported(params)
         self.device = resolve_device(device)
         self.params = params
@@ -406,8 +405,8 @@ class MultiReceiver:
     on tensors with a leading K axis, so K sub-receivers cost one set of
     device operations, not K."""
 
-    def __init__(self, params: RxParams, n_subch: int, *, device="cuda",
-                 calibration: dict | None = None):
+    def __init__(self, params: RxParams, n_subch: int,
+                 calibration: dict | None = None, *, device="cuda"):
         check_supported(params)
         self.device = resolve_device(device)
         self.params = params

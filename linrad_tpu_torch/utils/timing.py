@@ -11,9 +11,11 @@ attributes cost to named stages.
 
 As a script it times ``fused_fft1`` of this checkout, or of this
 checkout and another on the same card in turns (other, this, this,
-other), for comparing two versions of the kernel:
+other), for comparing two versions of the kernel; with ``--step`` it
+times the graphed flagship step instead (``BatchRunner``, the replays
+alone), for comparing two versions of the step:
 
-    python3 linrad_tpu_torch/utils/timing.py [--other DIR]
+    python3 linrad_tpu_torch/utils/timing.py [--step] [--other DIR]
 
 DIR holds another ``linrad_tpu_torch`` package; each checkout is loaded
 in a process of its own, since both packages have the same name.  Every
@@ -178,6 +180,36 @@ def _time_checkout(root: str) -> None:
               f"{min(eager):.4f}-{max(eager):.4f} [{smi}]", flush=True)
 
 
+def _time_step(root: str) -> None:
+    """Time the flagship step of the package under root as a CUDA graph:
+    ms per step of BatchRunner replays (calls of 8) on noise with 40
+    impulses of 3000 a step, after one call of warm-up."""
+    import subprocess
+    import sys
+
+    import numpy as np
+    sys.path.insert(0, root)
+    from linrad_tpu_torch import derive_geometry, flagship_params
+    from linrad_tpu_torch.pipeline.batch import BatchRunner
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    p = flagship_params(fft1_variant="pallas")
+    s = derive_geometry(p).samples_per_step
+    rng = np.random.default_rng(2)
+    iq = 10.0 * (rng.normal(size=8 * s) + 1j * rng.normal(size=8 * s))
+    pos = rng.integers(0, iq.size, 8 * 40)
+    iq[pos] += 3000.0 * np.exp(2j * np.pi * rng.uniform(size=pos.size))
+    br = BatchRunner(p, k_steps=8)
+    br.tune(12_345.6)
+    br.process(iq.astype(np.complex64))
+    ms = [cuda_ms(br._run_call, 1) / 8 for _ in range(6)]
+    print(f"{root}: graphed flagship step, replays alone: ms per step "
+          f"{min(ms):.3f}-{max(ms):.3f} over 6 calls of 8 [{smi}]",
+          flush=True)
+
+
 def main() -> None:
     import argparse
     import subprocess
@@ -186,17 +218,20 @@ def main() -> None:
     here = str(Path(__file__).resolve().parents[2])
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[1])
     ap.add_argument("--other", default=None)
+    ap.add_argument("--step", action="store_true")
     ap.add_argument("--one", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
-        _time_checkout(args.one)
+        (_time_step if args.step else _time_checkout)(args.one)
         return
     if not torch.cuda.is_available():
         raise SystemExit("timing: torch.cuda.is_available() is False")
     roots = [here] if args.other is None else [
         args.other, here, here, args.other]
+    step = ["--step"] if args.step else []
     for root in roots:
-        subprocess.run([sys.executable, __file__, "--one", root], check=True)
+        subprocess.run([sys.executable, __file__, *step, "--one", root],
+                       check=True)
 
 
 if __name__ == "__main__":

@@ -5,7 +5,10 @@ tables and state carried across by linrad_tpu_torch.convert.
 
 The JAX side runs jitted on the CPU; with fft1_variant="pallas" its
 Pallas kernel runs in interpret mode, as tests/test_pallas.py runs it.
-The port's "pallas" path on the CPU is its kernel's plain version.
+The port's "pallas" path on the CPU is its kernel's plain version.  The
+"filtercorr-*" configurations hand both receivers the same calibration
+dict (a filtercorr from calibration.make_filtercorr on a non-flat
+response), the port's positionally, as the JAX Receiver takes it.
 
 Bars, per RxOutputs field (max_rel = max|a-b| / max(max|a|, max|b|) over
 all steps, as tools/tpu_parity.py measures it):
@@ -23,6 +26,7 @@ import pytest
 import torch
 
 from __graft_entry__ import _flagship_params
+from linrad_tpu.calibration import make_filtercorr
 from linrad_tpu.pipeline.receiver import Receiver as JaxReceiver
 from linrad_tpu_torch import Demod, InputMode, convert
 from linrad_tpu_torch import derive_geometry as t_derive_geometry
@@ -48,10 +52,32 @@ CONFIGS = {
     # fft1 feeds mix1 directly
     "no-fft2": dataclasses.replace(_TINY, second_fft_enable=False,
                                    blanker_enable=False),
+    # the round-parallel clever blanker
+    "rounds": dataclasses.replace(_TINY, fft1_variant="xla",
+                                  blanker_rounds=8),
+    # the matmul-DFT fft1 variants (four-step at fft1 256: 16 x 16)
+    "mxu": dataclasses.replace(_TINY, fft1_variant="mxu"),
+    "mxu-bf16": dataclasses.replace(_TINY, fft1_variant="mxu_bf16"),
+    # a non-unity filtercorr through the kernel's plain version and xla
+    "filtercorr-pallas": dataclasses.replace(_TINY, fft1_variant="pallas"),
+    "filtercorr-xla": dataclasses.replace(_TINY, fft1_variant="xla"),
 }
 # the same configurations as the port's own RxParams
 T_CONFIGS = {k: convert.params_from_jax(v) for k, v in CONFIGS.items()}
 _T_TINY = convert.params_from_jax(_TINY)
+
+
+def _calibration(name: str) -> dict | None:
+    """The filtercorr-* configurations' calibration: make_filtercorr of a
+    tilted, rippled response (16 dB across the band, a phase ramp), made
+    by the JAX package's calibration module."""
+    if not name.startswith("filtercorr"):
+        return None
+    n = t_derive_geometry(T_CONFIGS[name]).fft1_size
+    k = np.fft.fftfreq(n)
+    resp = ((10 ** (0.4 * k) * (1.0 + 0.2 * np.cos(12 * np.pi * k)))
+            * np.exp(1j * 3.0 * k))
+    return {"filtercorr": make_filtercorr(resp)}
 
 
 def _max_rel(a, b) -> float:
@@ -83,8 +109,14 @@ def runs(request):
     """Both receivers over the same input from the same tables/state; the
     JAX step is jitted once here."""
     p = CONFIGS[request.param]
-    jrx = JaxReceiver(p)
-    trx = Receiver(T_CONFIGS[request.param], device="cpu")
+    cal = _calibration(request.param)
+    jrx = JaxReceiver(p, cal)
+    trx = Receiver(T_CONFIGS[request.param], cal, device="cpu")
+    if cal is not None:
+        # the port builds the same calibrated tables from the dict
+        np.testing.assert_array_equal(
+            convert.flatten(trx.tables)["fft1.filtercorr"],
+            convert.flatten(jrx.tables)["fft1.filtercorr"])
     trx.tables = convert.tables_from_numpy(convert.flatten(jrx.tables),
                                            "cpu")
     trx.state = convert.state_from_numpy(convert.flatten(jrx.state), "cpu")
@@ -182,15 +214,15 @@ def test_cuda_device_requires_cuda():
 
 
 REFUSED_PARAMS = {
-    "blanker-rounds": dict(blanker_rounds=2),
-    "mxu": dict(fft1_variant="mxu"),
-    "mxu-bf16": dict(fft1_variant="mxu_bf16"),
     "shards": dict(shards=2),
 }
 
-# refused before they were ported; tests/test_torch_eme.py and
-# tests/test_torch_options.py hold them against JAX
+# refused before they were ported; tests/test_torch_eme.py,
+# tests/test_torch_options.py and the CONFIGS above hold them against JAX
 PORTED_PARAMS = {
+    "blanker-rounds": dict(blanker_rounds=2),
+    "mxu": dict(fft1_variant="mxu"),
+    "mxu-bf16": dict(fft1_variant="mxu_bf16"),
     "two-channel": dict(rx_rf_channels=2),
     "demod-am": dict(demod=Demod.AM),
     "demod-fm": dict(demod=Demod.FM),
@@ -204,6 +236,31 @@ PORTED_PARAMS = {
     "expander": dict(expander_exponent=2.0),
     "spur": dict(spur_enable=True),
 }
+
+
+def test_calibration_positional():
+    """Receiver(params, calibration) and MultiReceiver(params, K,
+    calibration), positionally as in the JAX package: the filtercorr
+    reaches the tables and changes fft1_power."""
+    p = T_CONFIGS["filtercorr-xla"]
+    cal = _calibration("filtercorr-xla")
+    iq = _input(t_derive_geometry(p))[: t_derive_geometry(p).samples_per_step]
+    fc = torch.from_numpy(cal["filtercorr"])
+    powers = []
+    for c in (cal, None):
+        rx = Receiver(p, c, device="cpu")
+        mrx = MultiReceiver(p, 2, c, device="cpu")
+        if c is not None:
+            assert torch.equal(rx.tables.fft1.filtercorr, fc)
+            assert torch.equal(mrx.tables.fft1.filtercorr, fc)
+        rx.tune(TUNE_HZ)
+        out = rx.process_block(iq)
+        mout = mrx.process_block(iq)
+        assert torch.equal(out.fft1_power, mout.fft1_power)
+        assert mout.audio.shape == (2,) + tuple(out.audio.shape)
+        assert torch.isfinite(mout.audio).all()
+        powers.append(out.fft1_power)
+    assert not torch.equal(powers[0], powers[1])
 
 
 @pytest.mark.parametrize("name", list(REFUSED_PARAMS))
@@ -221,8 +278,8 @@ def test_refused_configuration(name):
 def test_ported_configuration(name):
     """A tiny Receiver builds and runs 5 steps (the AFC acquires after
     4) under each setting the port used to refuse."""
-    p = dataclasses.replace(_T_TINY, fft1_variant="xla",
-                            **PORTED_PARAMS[name])
+    p = dataclasses.replace(_T_TINY, **{"fft1_variant": "xla",
+                                        **PORTED_PARAMS[name]})
     rx = Receiver(p, device="cpu")
     rx.tune(TUNE_HZ)
     iq = np.repeat(_input(rx.geo)[: 5 * rx.geo.samples_per_step],

@@ -16,6 +16,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 MODULES = [
     "linrad_tpu_torch",
+    "linrad_tpu_torch.calibration",
     "linrad_tpu_torch.convert",
     "linrad_tpu_torch.errors",
     "linrad_tpu_torch.geometry",
@@ -39,6 +40,8 @@ MODULES = [
     "linrad_tpu_torch.ops.squelch",
     "linrad_tpu_torch.ops.timf2",
     "linrad_tpu_torch.ops.windows",
+    "linrad_tpu_torch.parallel",
+    "linrad_tpu_torch.parallel.fleet",
     "linrad_tpu_torch.pipeline.batch",
     "linrad_tpu_torch.pipeline.chain",
     "linrad_tpu_torch.pipeline.checkpoint",
@@ -91,7 +94,8 @@ def test_modules_list_is_complete():
                    "linrad_tpu_torch.pipeline", "linrad_tpu_torch.utils",
                    "linrad_tpu_torch.weak"}
     assert found - subpackages == set(MODULES)
-    for sub in ("io.", "runtime", "weak.radar", "pipeline.batch"):
+    for sub in ("io.", "runtime", "weak.radar", "pipeline.batch",
+                "calibration", "parallel.fleet"):
         assert any(m.startswith("linrad_tpu_torch." + sub) for m in MODULES)
 
 
@@ -241,6 +245,36 @@ def test_cpu_host_layer_does_not_import_jax():
         "trk = RadarTracker(n_bins=256, frame_time_s=0.01, device='cpu')\n"
         "trk.feed(np.random.default_rng(0).random((8, 256)))\n"
         "assert not trk.locked\n"
+        + FOREIGN)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]", proc.stdout
+
+
+def test_cpu_fleet_and_variants_do_not_import_jax():
+    """A tiny FleetRunner of 2 streams (one call of 2 steps), a Receiver
+    with the round-parallel blanker, the mxu fft1 variant and a filtercorr
+    from the calibration copy, jax-free."""
+    proc = _run(
+        "import sys, dataclasses, numpy as np\n"
+        "from linrad_tpu_torch import calibration, flagship_params\n"
+        "from linrad_tpu_torch.parallel import FleetRunner\n"
+        "from linrad_tpu_torch.pipeline.receiver import Receiver\n"
+        "p = flagship_params(tiny=True)\n"
+        "fl = FleetRunner(p, 2, k_steps=2, device='cpu')\n"
+        "fl.tune([1000.0, -2000.0])\n"
+        "rng = np.random.default_rng(0)\n"
+        "n = 2 * fl.geo.samples_per_step\n"
+        "iq = (rng.normal(size=(2, n)) + 1j * rng.normal(size=(2, n)))"
+        ".astype(np.complex64)\n"
+        "assert fl.process(iq)['audio'].shape == "
+        "(2, 2 * fl.geo.baseband_samples_per_step, 1)\n"
+        "fc = calibration.make_filtercorr("
+        "np.linspace(1.0, 2.0, fl.geo.fft1_size))\n"
+        "q = dataclasses.replace(p, blanker_rounds=8, fft1_variant='mxu')\n"
+        "rx = Receiver(q, {'filtercorr': fc}, device='cpu')\n"
+        "rx.tune(1000.0)\n"
+        "outs = list(rx.run(iq[0]))\n"
+        "assert len(outs) == 2\n"
         + FOREIGN)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]", proc.stdout
