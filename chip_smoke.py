@@ -130,6 +130,23 @@ Phases, in order; any failure raises and the script exits non-zero:
             per step and aggregate complex Msamples/s at R = 1 and R = 8 in
             turns, the graph pools, the stream fold's copy alone.
 
+19. weak    the weak-signal decode and the operator's path.  (a) The
+            repository's qualification (tests/test_weak.py::
+            TestWeakSignalQualification) at its full width: 96 kHz IQ,
+            fft1 8192, 262,144 samples per step, AFC, coherent detector;
+            at -2 dB (seed 1000) and -6 dB (seed 1001) in 2500 Hz
+            decode_morse_ml of the card's baseband must read "CQ DX DE
+            SM5BSZ" exactly; the baseband against the same Receiver on
+            the CPU.  (b) test_full_chain_decode's configuration (fft1
+            2048, 65,536 samples per step) with the fused fft1: one
+            launch per step; decode_morse exact; against a torch.fft
+            receiver to phase 4's bars.  (c) TapPublisher and WebGui on
+            that receiver on 127.0.0.1: the UDP audio and baseband taps
+            equal the card's outputs bit for bit, /status.json and
+            /waterfall.bmp are fetched; SsbTxStreamer with its resampler
+            on the card against its CPU run within 1e-5, and its ms per
+            block.  Each part's seconds.
+
 ``python3 chip_smoke.py --stages`` runs phases 1 and 2 and then, instead
 of the smoke run, a diagnostic: the synced wall time of every stage of
 the multi-receiver step at K = 24 and K = 1.  ``--regimes`` likewise
@@ -139,8 +156,8 @@ after an eager loop).
 
 It prints a JSON line describing every kernel of the paths (launches
 summed over the flagship, EME, multi-receiver, real-input, batch,
-checkpoint, file, rounds, mxu, calibration and fleet runs, each counted
-from zero; times
+checkpoint, file, rounds, mxu, calibration, fleet and CW decode runs,
+each counted from zero; times
 at the flagship's shape, and per shape under "by_shape"), then, as the
 last line, {"ok": true, "device": {...}}.
 """
@@ -150,6 +167,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import struct
 import subprocess
 import sys
 import tempfile
@@ -224,6 +242,18 @@ FLEET_FIELDS = ("audio", "baseb")
 # the start of the warning torch.func.vmap gives where an operation has no
 # batching rule and it loops over the batch instead
 VMAP_SLOW_PATH = "There is a performance drop"
+# the weak-signal decode and the operator's path (phase 19): the
+# repository's qualification (tests/test_weak.py::TestWeakSignalQualification)
+# at its full width, two (SNR dB in 2500 Hz, seed) runs that the JAX
+# package decodes exactly; the CW decode of test_full_chain_decode
+QUAL_MSG = "CQ DX DE SM5BSZ"
+QUAL_RUNS = ((-2.0, 1000), (-6.0, 1001))
+QUAL_FC = 10_000.0
+CW_MSG = "CQ CQ DE SM5BSZ"
+CW_TUNE_HZ = 12_000.0
+TX_BLOCKS = 32
+TX_TOL = 1e-5
+LOOPBACK = "127.0.0.1"
 
 
 def max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -233,6 +263,13 @@ def max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
     b = b.detach().to(wide)
     scale = max(a.abs().max().item(), b.abs().max().item(), 1e-30)
     return (a - b).abs().max().item() / scale
+
+
+def recorded_fft1() -> int:
+    """fused_fft1 calls recorded into CUDA graphs so far: handed to the
+    runners, which count the kernel's launches per replay with it."""
+    from linrad_tpu_torch.ops.fused_fft1 import fused_fft1
+    return fused_fft1.captured
 
 
 def phase_device() -> dict:
@@ -1237,7 +1274,8 @@ def phase_batch(dev: dict, device=None, tiny: bool = False) -> int:
     s = geo.samples_per_step
 
     def runner(params=p):
-        br = BatchRunner(params, k_steps=BATCH_K, **kw)
+        br = BatchRunner(params, k_steps=BATCH_K, recorded=recorded_fft1,
+                         **kw)
         br.tune(TUNE_HZ)
         return br
 
@@ -1714,7 +1752,8 @@ def phase_rounds(dev: dict, device="cuda", tiny: bool = False) -> int:
                               iq, device), shapes, "rounds: ")
 
     iq16 = make_input(geo, seed=2, steps=BATCH_STEPS)
-    br = BatchRunner(p, k_steps=BATCH_K, device=device)
+    br = BatchRunner(p, k_steps=BATCH_K, device=device,
+                     recorded=recorded_fft1)
     br.tune(TUNE_HZ)
     fused_fft1.launches = 0
     got = br.process(iq16)
@@ -1895,7 +1934,7 @@ def phase_fleet(dev: dict, device="cuda", tiny: bool = False,
         # an operation without a batching rule would loop over the streams
         warnings.filterwarnings("error", message=VMAP_SLOW_PATH)
         fl = FleetRunner(p, r, k_steps=FLEET_K, outputs=FLEET_FIELDS,
-                         device=device)
+                         device=device, recorded=recorded_fft1)
         fl.tune(dials)
         fused_fft1.launches = 0
         got = fl.process(iq)
@@ -1998,6 +2037,252 @@ def phase_fleet_timing(dev: dict, p, dials, iq: np.ndarray, fl) -> None:
           f"{(frames.shape[1], frames.shape[2], fl.n)} alone: {fold:.5f} ms "
           f"(device-only, CUDA graph) [{dev['smi']}]")
     fused_fft1.launches = counted
+
+
+def qual_params():
+    """The qualification's receiver: 96 kHz IQ, fft1 8192, 262,144
+    samples per step, AFC and the coherent detector, AGC off."""
+    from linrad_tpu_torch import Demod, RxParams
+    return RxParams(first_fft_bandwidth=30.0, mix1_bandwidth_reduction_n=4,
+                    agc_enable=False, afc_enable=True, demod=Demod.COHERENT,
+                    bfo_hz=600.0, filter_low_hz=-100.0, filter_high_hz=100.0)
+
+
+def qual_input(geo, snr_db: float, seed: int) -> np.ndarray:
+    """QUAL_MSG keyed at 20 WPM on a carrier at QUAL_FC drifting 0.5 Hz/s,
+    two steps of silence after it, complex Gaussian noise at ``snr_db`` in
+    2500 Hz: the JAX package's qualification input, sample for sample."""
+    from linrad_tpu_torch.weak.cw import keyed_cw
+    fs = geo.rx_ad_speed
+    key = keyed_cw(QUAL_MSG, fs, 20.0, 0.0)
+    n = (len(key) // geo.samples_per_step + 2) * geo.samples_per_step
+    sig = np.zeros(n, np.complex64)
+    sig[:len(key)] = key
+    t = np.arange(n) / fs
+    clean = sig * np.exp(2j * np.pi * (QUAL_FC * t + 0.25 * t ** 2))
+    sigma = np.sqrt(1.0 / (2 * (2500 / fs) * 10 ** (snr_db / 10)))
+    rng = np.random.default_rng(seed)
+    return (clean + sigma * (rng.normal(size=n) + 1j * rng.normal(size=n))
+            ).astype(np.complex64)
+
+
+def cw_params(fft1_variant: str):
+    """test_full_chain_decode's receiver: fft1 2048, 65,536 samples per
+    step, SSB at a 700 Hz BFO, AGC off."""
+    from linrad_tpu_torch import RxParams
+    return RxParams(first_fft_bandwidth=100.0, mix1_bandwidth_reduction_n=4,
+                    agc_enable=False, bfo_hz=700.0, filter_low_hz=-400.0,
+                    filter_high_hz=400.0, fft1_variant=fft1_variant)
+
+
+def cw_input(geo) -> np.ndarray:
+    """CW_MSG at 20 WPM on CW_TUNE_HZ with noise (seed 1), padded to whole
+    steps, as test_full_chain_decode makes it."""
+    from linrad_tpu_torch.weak.cw import keyed_cw
+    cw = keyed_cw(CW_MSG, geo.rx_ad_speed, 20, CW_TUNE_HZ)
+    pad = ((len(cw) // geo.samples_per_step + 1) * geo.samples_per_step
+           - len(cw))
+    cw = np.concatenate([cw, np.zeros(pad, np.complex64)])
+    rng = np.random.default_rng(1)
+    return cw + 0.02 * (rng.normal(size=len(cw))
+                        + 1j * rng.normal(size=len(cw))).astype(np.complex64)
+
+
+def np_max_rel(a: np.ndarray, b: np.ndarray) -> float:
+    return max_rel(torch.from_numpy(np.asarray(a)),
+                   torch.from_numpy(np.asarray(b)))
+
+
+def phase_weak_qualification(dev: dict, device="cuda") -> None:
+    """Phase 19a: the qualification at full width through the port's
+    Receiver on ``device``, the baseband against the same Receiver on the
+    CPU, and decode_morse_ml of the card's baseband, which must read
+    QUAL_MSG exactly."""
+    from linrad_tpu_torch import derive_geometry
+    from linrad_tpu_torch.pipeline import Receiver
+    from linrad_tpu_torch.utils.host import to_numpy
+    from linrad_tpu_torch.weak.cw import decode_morse_ml
+    p = qual_params()
+    geo = derive_geometry(p)
+    fs_bb = geo.baseband_sampling_speed
+
+    def baseband(iq, where):
+        rx = Receiver(p, device=where)
+        rx.tune(QUAL_FC)
+        t0 = time.perf_counter()
+        outs, status = [], []
+        for out in rx.run(iq):
+            outs.append(out)
+            status.append(rx.afc.status)
+        bb = np.concatenate([to_numpy(o.baseb) for o in outs])[:, 0]
+        return bb, status, time.perf_counter() - t0
+
+    for snr_db, seed in QUAL_RUNS:
+        t0 = time.perf_counter()
+        iq = qual_input(geo, snr_db, seed)
+        bb, status, rx_s = baseband(iq, device)
+        ref, ref_status, cpu_s = baseband(iq, "cpu")
+        n = len(iq) // geo.samples_per_step * geo.baseband_samples_per_step
+        if bb.shape != (n,) or not np.isfinite(bb).all():
+            raise AssertionError(f"qualification baseb of shape {bb.shape},"
+                                 f" expected ({n},), or non-finite values")
+        t1 = time.perf_counter()
+        res = decode_morse_ml(bb, fs_bb)
+        decode_s = time.perf_counter() - t1
+        rel = np_max_rel(bb, ref)
+        print(f"weak qualification {snr_db:+.0f} dB/2500 Hz seed {seed}: "
+              f"{len(status)} steps of {geo.samples_per_step} samples at fft1 "
+              f"{geo.fft1_size}; AFC status per step {status} (CPU "
+              f"{ref_status}); baseb card vs CPU max_rel {rel:.3e}; "
+              f"decode_morse_ml {res.text!r} at {res.wpm:.1f} WPM; receiver "
+              f"{rx_s:.2f} s on {device}, {cpu_s:.2f} s on the CPU, decoder "
+              f"{decode_s:.2f} s on the host; part {time.perf_counter() - t0:.1f}"
+              f" s [{dev['smi']}]")
+        if res.text != QUAL_MSG:
+            raise AssertionError(f"qualification at {snr_db} dB: decoded "
+                                 f"{res.text!r}, expected {QUAL_MSG!r}")
+
+
+def drain_taps(nets: dict, pub, got: dict) -> None:
+    """Read every packet the publisher has sent so far into ``got``."""
+    from linrad_tpu_torch.io import taps
+    for fmt, net in nets.items():
+        while len(got[fmt]) < pub.senders[fmt].block_no * taps.PAYLOAD_BYTES:
+            r = net.recv()
+            if r is None:
+                raise AssertionError(f"tap {fmt}: a packet did not arrive")
+            got[fmt] += r[1]
+
+
+def phase_weak(dev: dict, device="cuda") -> int:
+    """Phase 19, the weak-signal decode and the operator's path.  Returns
+    the kernel's launches on the CW decode's path."""
+    import urllib.request
+    from linrad_tpu_torch import derive_geometry
+    from linrad_tpu_torch.io import taps
+    from linrad_tpu_torch.io.httpd import WebGui
+    from linrad_tpu_torch.io.publish import TapPublisher
+    from linrad_tpu_torch.ops.fused_fft1 import fused_fft1
+    from linrad_tpu_torch.pipeline import Receiver
+    from linrad_tpu_torch.utils.host import to_numpy
+    from linrad_tpu_torch.weak.cw import decode_morse
+    on_card = torch.device(device).type == "cuda"
+    phase_weak_qualification(dev, device)
+
+    # (b) the CW decode through the fused fft1, (c) with the operator's
+    # hooks attached to the same receiver
+    t0 = time.perf_counter()
+    p = cw_params("pallas")
+    geo = derive_geometry(p)
+    iq = cw_input(geo)
+    s = geo.samples_per_step
+    steps = len(iq) // s
+    rx = Receiver(p, device=device)
+    rx.tune(CW_TUNE_HZ)
+    fields = {taps.TAP_BASEB: "audio", taps.TAP_BASEBRAW: "baseb"}
+    nets = {f: taps.TapReceiver(f, timeout=5.0, bind=(LOOPBACK, 0))
+            for f in fields}
+    pub = TapPublisher(fields, dest={f: (LOOPBACK, n.port)
+                                     for f, n in nets.items()})
+    pub.attach(rx)
+    gui = WebGui()
+    gui.attach(rx)
+    port = gui.serve(host=LOOPBACK)
+    got = {f: b"" for f in fields}
+    outs = []
+    try:
+        fused_fft1.launches = 0
+        for i in range(steps):
+            outs.append(rx.process_block(iq[i * s:(i + 1) * s]))
+            drain_taps(nets, pub, got)
+        launches = fused_fft1.launches
+        rx_s = time.perf_counter() - t0
+
+        def fetch(path):
+            with urllib.request.urlopen(f"http://{LOOPBACK}:{port}{path}",
+                                        timeout=10) as r:
+                return r.read()
+
+        status = json.loads(fetch("/status.json"))
+        bmp = fetch("/waterfall.bmp")
+    finally:
+        gui.close()
+        pub.close()
+        for net in nets.values():
+            net.close()
+    print(f"weak cw decode: {steps} steps of {s} samples at fft1 "
+          f"{geo.fft1_size}, fused_fft1 launches {launches} "
+          f"({geo.fft1_frames_per_step}, {geo.fft1_size}, {geo.channels}) "
+          f"per step")
+    if on_card and launches != steps:
+        raise AssertionError(f"weak: expected {steps} kernel launches, saw "
+                             f"{launches}")
+    keys = [f.name for f in dataclasses.fields(outs[0])
+            if getattr(outs[0], f.name) is not None]
+    compare_runs(outs, run_rx(cw_params("xla"), iq, device,
+                              tune_hz=CW_TUNE_HZ), keys, "weak: ")
+    audio = np.concatenate([to_numpy(o.audio) for o in outs])[:, 0]
+    res = decode_morse(audio, geo.baseband_sampling_speed)
+    print(f"weak cw decode: decode_morse {res.text!r} at {res.wpm:.1f} WPM; "
+          f"part {time.perf_counter() - t0:.1f} s")
+    if res.text != CW_MSG:
+        raise AssertionError(f"weak: decoded {res.text!r}, expected "
+                             f"{CW_MSG!r}")
+
+    # (c) the taps carried the card's outputs bit for bit; the GUI answered
+    t1 = time.perf_counter()
+    for fmt, attr in fields.items():
+        sent = b"".join(to_numpy(getattr(o, attr)).tobytes() for o in outs)
+        n = len(got[fmt])
+        print(f"weak taps: format {fmt} ({attr}) {n} bytes received of "
+              f"{len(sent)} sent on {LOOPBACK}, bit-equal "
+              f"{got[fmt] == sent[:n]}")
+        if n < taps.PAYLOAD_BYTES or got[fmt] != sent[:n]:
+            raise AssertionError(f"weak: tap {fmt} does not carry the "
+                                 f"outputs bit for bit")
+    w, h = struct.unpack("<ii", bmp[18:26])
+    print(f"weak gui: /status.json steps {status['steps']}, s_meter "
+          f"{status['s_meter']}, audio_rate {status['audio_rate']}; "
+          f"/waterfall.bmp {len(bmp)} bytes, {w} x {h}")
+    if status["steps"] != steps or bmp[:2] != b"BM" or h != steps:
+        raise AssertionError("weak: the web GUI did not answer as expected")
+    phase_weak_tx(dev, device)
+    print(f"weak operator part {time.perf_counter() - t1:.1f} s")
+    return launches
+
+
+def phase_weak_tx(dev: dict, device="cuda") -> None:
+    """The transmit streamer with its resampler on ``device`` against the
+    same streamer on the CPU, TX_BLOCKS mic blocks of a two-tone: every
+    D/A block within TX_TOL; ms per pumped block on the device."""
+    from linrad_tpu_torch.tx import SsbTxStreamer
+    fs_ad, fs_da, block = 12_000, 48_000, 1024
+    t = np.arange(TX_BLOCKS * block) / fs_ad
+    mic = (0.4 * np.sin(2 * np.pi * 700.0 * t)
+           + 0.4 * np.sin(2 * np.pi * 1900.0 * t)).astype(np.float32)
+    out, secs = {}, {}
+    for where in (device, "cpu"):
+        tx = SsbTxStreamer(fs_ad, fs_da, block, device=where)
+        tx.push_mic(mic[:block])
+        tx.pump()                     # the first block builds the kernels
+        tx.push_mic(mic[block:])
+        t0 = time.perf_counter()
+        tx.pump()
+        secs[where] = time.perf_counter() - t0
+        blocks = []
+        while (b := tx.pop_dac()) is not None:
+            blocks.append(b)
+        out[where] = blocks
+    worst = max(np_max_rel(a, b) for a, b in zip(out[device], out["cpu"]))
+    n = TX_BLOCKS - 1
+    print(f"weak tx: SsbTxStreamer {len(out[device])} blocks of {block} mic "
+          f"samples to {4 * block} at {fs_da} Hz; {device} vs CPU max_rel "
+          f"{worst:.3e} (bar {TX_TOL}); ms per block {1e3 * secs[device] / n:.3f}"
+          f" on {device}, {1e3 * secs['cpu'] / n:.3f} on the CPU "
+          f"[{dev['smi']}]")
+    if len(out[device]) != TX_BLOCKS or worst > TX_TOL:
+        raise AssertionError("weak: the transmit streamer disagrees with its "
+                             "CPU run")
 
 
 # stage functions of pipeline/chain.py: (module attribute of chain, name)
@@ -2104,6 +2389,7 @@ def main() -> None:
     launches += phase_mxu(dev)
     launches += phase_calibration(dev)
     launches += phase_fleet(dev)
+    launches += phase_weak(dev)
     print(json.dumps({"kernels": [{
         "name": "fused_fft1", "route": "cuda",
         "source": "linrad_tpu_torch/csrc/fused_fft1.cu",

@@ -25,21 +25,30 @@ the radar tracker ``weak.radar``; the round-parallel clever blanker
 (``blanker_rounds>0``), the matmul-DFT fft1 variants (``"mxu"``,
 ``"mxu_bf16"``), the calibration module (``calibration``, a copy) and
 ``parallel.FleetRunner`` (many receivers as one ``torch.func.vmap``'d
-step, one fused fft1 launch for all of them).  ``shards>1`` raises
-NotImplementedError naming its ROADMAP entry; the time-sharded steps,
-the transmit side and the display and network modules are still to
-come.
+step, one fused fft1 launch for all of them); and the operator's side,
+host numpy copies of the JAX package's modules that take the card's
+outputs as they are (``utils.host.to_numpy``): the Morse decoder and
+repeat stacking (``weak.cw``), signal analysis (``weak.siganal``), EME
+data (``weak.eme``), the test modes (``modes``), the transmit chain
+(``tx``, its resampler on the device), the network taps and their
+publisher (``io.taps``, ``io.publish``), the displays (``viz``) and the
+web GUI (``io.httpd``), with twins of the JAX package's examples
+(``examples``).  ``shards>1`` raises NotImplementedError naming its
+ROADMAP entry; the time-sharded steps are still to come.
 
 This package never imports jax or ``linrad_tpu``;
 ``convert.params_from_jax`` turns the JAX package's ``RxParams`` into
 this package's.
 """
 
-from .geometry import Geometry, derive_geometry
+from .geometry import Geometry, derive_geometry, interleave_ratio
 from .params import Demod, InputMode, RxMode, RxParams, preset
 
+__version__ = "0.1.0"
+
 __all__ = ["Demod", "Geometry", "InputMode", "RxMode", "RxParams",
-           "derive_geometry", "flagship_params", "preset"]
+           "derive_geometry", "flagship_params", "interleave_ratio",
+           "preset", "__version__"]
 
 
 def flagship_params(tiny: bool = False,

@@ -68,17 +68,20 @@ class FleetRunner(BatchRunner):
     Each stream has its own carried state and its own tune frequency; the
     parameters, geometry and tables are shared.  ``device`` is one device;
     a list of more than one raises NotImplementedError (the JAX runner's
-    ``devices=`` mesh: ROADMAP queue 1 item 6)."""
+    ``devices=`` mesh: ROADMAP queue 1 item 6).  ``recorded``: the
+    caller's count of kernel calls recorded into CUDA graphs, as for
+    :class:`..pipeline.batch.BatchRunner`."""
 
     def __init__(self, params, n_streams: int, k_steps: int = 8,
-                 outputs: tuple = ("audio",), *, device="cuda"):
+                 outputs: tuple = ("audio",), *, device="cuda",
+                 recorded=None):
         if isinstance(device, (list, tuple)):
             if len(device) > 1:
                 raise NotImplementedError(
                     "FleetRunner over several devices is not ported yet "
                     "(ROADMAP queue 1 item 6)")
             device = device[0]
-        self._setup(params, k_steps, outputs, None, device)
+        self._setup(params, k_steps, outputs, None, device, recorded)
         geo = self.geo
         if not geo.iq_input:
             raise ValueError("FleetRunner: IQ input only, as in the JAX "

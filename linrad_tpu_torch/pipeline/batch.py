@@ -24,12 +24,12 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Callable
 
 import numpy as np
 import torch
 
 from ..geometry import derive_geometry
-from ..ops.fused_fft1 import fused_fft1
 from ..params import RxParams
 from .chain import RxState, RxTables, _map_tensors, make_rx_step
 from .receiver import _pulsewidth, resolve_device
@@ -192,14 +192,19 @@ class BatchRunner:
     alternate, so the host converts call i+1 while the card runs call i;
     a buffer is refilled only after the event behind its copies.
 
-    A replay launches the fused fft1 kernel without a call of its wrapper,
-    so the runner keeps the count: ``kernel_launches`` is the wrapper calls
-    recorded into the graph times the replays made."""
+    A replay launches the captured kernels without a call of their
+    wrappers, so a caller who wants them counted hands the runner
+    ``recorded``: a function that returns a running count of kernel calls
+    recorded into CUDA graphs (``lambda: fused_fft1.captured`` for the
+    fused fft1).  The runner reads it before and after its capture;
+    ``kernels_per_replay`` is the difference (0 without ``recorded``), and
+    ``kernel_launches`` that times the replays made."""
 
     def __init__(self, params: RxParams, k_steps: int = 16,
                  outputs: tuple = ("audio", "baseb"),
-                 calibration: dict | None = None, *, device="cuda"):
-        self._setup(params, k_steps, outputs, calibration, device)
+                 calibration: dict | None = None, *, device="cuda",
+                 recorded: Callable[[], int] | None = None):
+        self._setup(params, k_steps, outputs, calibration, device, recorded)
         step = make_rx_step(self.geo, params,
                             blanker_pulsewidth=_pulsewidth(self.geo))
         self._tune_bin = torch.zeros((), dtype=torch.int64,
@@ -215,9 +220,12 @@ class BatchRunner:
         self._capture(step, self._new_state(), shape, dtype,
                       (self._tune_bin,))
 
-    def _setup(self, params, k_steps, outputs, calibration, device) -> None:
-        """Device, geometry and tables."""
+    def _setup(self, params, k_steps, outputs, calibration, device,
+               recorded) -> None:
+        """Device, geometry, tables and the caller's count of recorded
+        kernel calls."""
         self.device = resolve_device(device)
+        self._recorded = recorded or (lambda: 0)
         self.params = params
         self.geo = derive_geometry(params)
         self.k = int(k_steps)
@@ -238,10 +246,10 @@ class BatchRunner:
         """The step as a GraphedStep on one step's input (shape, dtype),
         the K-deep input and output stacks on the device, and the host
         buffers."""
-        recorded = fused_fft1.captured
+        before = self._recorded()
         self.graphed = GraphedStep(step, self.tables, state, shape, dtype,
                                    args)
-        self.kernels_per_replay = fused_fft1.captured - recorded
+        self.kernels_per_replay = self._recorded() - before
         self._blocks = torch.zeros((self.k, *shape), dtype=dtype,
                                    device=self.device)
         self._stacks = None
@@ -264,7 +272,7 @@ class BatchRunner:
 
     @property
     def kernel_launches(self) -> int:
-        """fused_fft1 launches made by this runner's replays."""
+        """Launches of the counted kernels made by this runner's replays."""
         return self.kernels_per_replay * self.graphed.replays
 
     def tune(self, freq_hz: float) -> None:

@@ -19,10 +19,19 @@ MODULES = [
     "linrad_tpu_torch.calibration",
     "linrad_tpu_torch.convert",
     "linrad_tpu_torch.errors",
+    "linrad_tpu_torch.examples._args",
+    "linrad_tpu_torch.examples.demo_multirx",
+    "linrad_tpu_torch.examples.demo_rx",
+    "linrad_tpu_torch.examples.demo_tx",
+    "linrad_tpu_torch.examples.serve_rx",
     "linrad_tpu_torch.geometry",
+    "linrad_tpu_torch.io.httpd",
+    "linrad_tpu_torch.io.publish",
     "linrad_tpu_torch.io.rawfile",
     "linrad_tpu_torch.io.siggen",
+    "linrad_tpu_torch.io.taps",
     "linrad_tpu_torch.io.wav",
+    "linrad_tpu_torch.modes",
     "linrad_tpu_torch.params",
     "linrad_tpu_torch.ops.agc",
     "linrad_tpu_torch.ops.blanker",
@@ -42,6 +51,7 @@ MODULES = [
     "linrad_tpu_torch.ops.windows",
     "linrad_tpu_torch.parallel",
     "linrad_tpu_torch.parallel.fleet",
+    "linrad_tpu_torch.pipeline",
     "linrad_tpu_torch.pipeline.batch",
     "linrad_tpu_torch.pipeline.chain",
     "linrad_tpu_torch.pipeline.checkpoint",
@@ -50,13 +60,23 @@ MODULES = [
     "linrad_tpu_torch.pipeline.receiver",
     "linrad_tpu_torch.runtime",
     "linrad_tpu_torch.runtime.watchdog",
+    "linrad_tpu_torch.tx",
+    "linrad_tpu_torch.tx.keying",
+    "linrad_tpu_torch.tx.modulate",
+    "linrad_tpu_torch.tx.ssbproc",
+    "linrad_tpu_torch.tx.stream",
+    "linrad_tpu_torch.utils.host",
     "linrad_tpu_torch.utils.llsq",
     "linrad_tpu_torch.utils.scanops",
     "linrad_tpu_torch.utils.segments",
     "linrad_tpu_torch.utils.timing",
+    "linrad_tpu_torch.viz",
     "linrad_tpu_torch.weak.afc",
+    "linrad_tpu_torch.weak.cw",
+    "linrad_tpu_torch.weak.eme",
     "linrad_tpu_torch.weak.pol",
     "linrad_tpu_torch.weak.radar",
+    "linrad_tpu_torch.weak.siganal",
     "linrad_tpu_torch.weak.spur",
 ]
 
@@ -89,13 +109,15 @@ def test_modules_list_is_complete():
         rel = path.relative_to(ROOT).with_suffix("")
         parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
         found.add(".".join(parts))
-    # runtime is a subpackage with code of its own (the ctypes bindings)
+    # runtime (the ctypes bindings), pipeline, parallel and tx (their
+    # public names) are subpackages with code of their own
     subpackages = {"linrad_tpu_torch.io", "linrad_tpu_torch.ops",
-                   "linrad_tpu_torch.pipeline", "linrad_tpu_torch.utils",
-                   "linrad_tpu_torch.weak"}
+                   "linrad_tpu_torch.utils", "linrad_tpu_torch.weak",
+                   "linrad_tpu_torch.examples"}
     assert found - subpackages == set(MODULES)
     for sub in ("io.", "runtime", "weak.radar", "pipeline.batch",
-                "calibration", "parallel.fleet"):
+                "calibration", "parallel.fleet", "weak.cw", "tx.stream",
+                "io.httpd", "examples.serve_rx"):
         assert any(m.startswith("linrad_tpu_torch." + sub) for m in MODULES)
 
 
@@ -245,6 +267,48 @@ def test_cpu_host_layer_does_not_import_jax():
         "trk = RadarTracker(n_bins=256, frame_time_s=0.01, device='cpu')\n"
         "trk.feed(np.random.default_rng(0).random((8, 256)))\n"
         "assert not trk.locked\n"
+        + FOREIGN)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]", proc.stdout
+
+
+def test_cpu_operator_tools_do_not_import_jax():
+    """The operator's side on a tiny receiver, jax-free: the taps
+    published on loopback, the web GUI attached, the Morse decoder, the
+    signal analysis and test modes, the EME data and the transmit
+    streamer on the CPU."""
+    proc = _run(
+        "import sys, numpy as np\n"
+        "from linrad_tpu_torch import flagship_params, modes\n"
+        "from linrad_tpu_torch.io import taps\n"
+        "from linrad_tpu_torch.io.httpd import WebGui\n"
+        "from linrad_tpu_torch.io.publish import TapPublisher\n"
+        "from linrad_tpu_torch.pipeline import Receiver\n"
+        "from linrad_tpu_torch.tx import SsbTxStreamer\n"
+        "from linrad_tpu_torch.weak import eme, siganal\n"
+        "from linrad_tpu_torch.weak.cw import decode_morse, keyed_cw\n"
+        "rx = Receiver(flagship_params(tiny=True), device='cpu')\n"
+        "net = taps.TapReceiver(taps.TAP_BASEBRAW, bind=('127.0.0.1', 0))\n"
+        "pub = TapPublisher({taps.TAP_BASEBRAW: 'baseb'}, "
+        "dest={taps.TAP_BASEBRAW: ('127.0.0.1', net.port)})\n"
+        "pub.attach(rx)\n"
+        "gui = WebGui()\n"
+        "gui.attach(rx)\n"
+        "z = keyed_cw('EE', 96000.0, 60, 1000.0)[:8 * 1024]\n"
+        "outs = list(rx.run(z.astype(np.complex64)))\n"
+        "assert net.recv() is not None and gui.status()['steps'] == 8\n"
+        "assert decode_morse(keyed_cw('TEST', 6000.0, 20, 600.0), "
+        "6000.0).text == 'TEST'\n"
+        "assert siganal.signal_analysis(outs[-1].baseb).segments_used >= 0\n"
+        "assert modes.adtest(outs[-1].baseb).rms > 0\n"
+        "assert eme.latlon_to_locator(*eme.locator_to_latlon('JO89IP')) "
+        "== 'JO89IP'\n"
+        "tx = SsbTxStreamer(12000, 48000, 1024, device='cpu')\n"
+        "tx.push_mic(np.zeros(2048, np.float32))\n"
+        "tx.pump()\n"
+        "assert tx.pop_dac().shape == (4096,)\n"
+        "pub.close()\n"
+        "net.close()\n"
         + FOREIGN)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]", proc.stdout

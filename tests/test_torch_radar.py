@@ -25,11 +25,14 @@ import torch
 from linrad_tpu.geometry import derive_geometry as j_derive_geometry
 from linrad_tpu.ops import demod as jdemod
 from linrad_tpu.params import RxParams as JaxRxParams
-from linrad_tpu.tx.keying import radar_pulse_train
+from linrad_tpu.tx.keying import radar_pulse_train as j_radar_pulse_train
+from linrad_tpu.viz import radar_graph_image as j_radar_graph_image
 from linrad_tpu.weak import radar as jradar
 from linrad_tpu_torch import RxParams, derive_geometry
 from linrad_tpu_torch.ops import demod as tdemod
 from linrad_tpu_torch.ops.fft1 import FFT1State, FFT1Tables, fft1_step
+from linrad_tpu_torch.tx.keying import radar_pulse_train
+from linrad_tpu_torch.viz import radar_graph_image
 from linrad_tpu_torch.weak import radar as tradar
 from linrad_tpu_torch.weak.radar import (RadarParams, RadarTracker,
                                          frame_pulse_stats)
@@ -230,6 +233,35 @@ def test_tracker_decisions_equal_jax(trackers):
     assert _max_rel(tt._floor, jt._floor) <= FP32
 
 
+def test_radar_pulse_train_equal_jax():
+    """The port's tx.keying.radar_pulse_train, which builds this file's
+    radar input, is the JAX package's bit for bit."""
+    for kw in (dict(prf_hz=100.0, pulse_s=0.001, duration_s=1.0),
+               dict(prf_hz=FS / 1280, pulse_s=96 / FS, duration_s=0.5,
+                    rise_s=0.0002)):
+        got = radar_pulse_train(FS, **kw)
+        ref = j_radar_pulse_train(FS, **kw)
+        assert got.dtype == ref.dtype == np.float32
+        np.testing.assert_array_equal(got, ref)
+
+
+def test_radar_graph_image_against_jax(trackers):
+    """viz.radar_graph_image (make_radar_graph radar.c:422-520) of the
+    port's tracker against the JAX package's of its tracker fed the same
+    frames (the averages agree to 1e-5, so the images do); the JAX
+    function on the port's tracker gives the port's image bit for bit;
+    before lock the image is empty in both."""
+    tt, jt = trackers["tt"], trackers["jt"]
+    img = radar_graph_image(tt)
+    assert img.dtype == np.float32 and img.shape == tt.average.shape
+    assert np.all((img >= 0) & (img <= 1)) and img.max() == 1.0
+    assert _max_rel(img, j_radar_graph_image(jt)) <= FP32
+    np.testing.assert_array_equal(j_radar_graph_image(tt), img)
+    np.testing.assert_array_equal(radar_graph_image(tt, -30.0),
+                                  j_radar_graph_image(tt, -30.0))
+    assert radar_graph_image(_tracker()).shape == (0, 0)
+
+
 def test_tracker_display_equal_jax(trackers):
     tt, jt = trackers["tt"], trackers["jt"]
     assert tt.average.shape == jt.average.shape == (tt.lines,
@@ -303,9 +335,9 @@ def test_radar_no_lock_without_pulses():
 
 
 def test_radar_display_image_mapping():
-    """The intensity mapping of make_radar_cfac (the JAX package tests it
-    through viz.radar_graph_image, which the port has no copy of yet; the
-    tracker's own display_image is the same mapping)."""
+    """The intensity mapping of make_radar_cfac, the tracker's own
+    display_image (viz.radar_graph_image, the radar graph, is held to the
+    JAX package's in test_radar_graph_image_against_jax)."""
     tracker = _tracker(params=RadarParams(gain=100.0))
     tracker._avg = torch.tensor([[1.0, 1e30], [0.01, 1e-9]])
     img = tracker.display_image()
