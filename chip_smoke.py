@@ -147,6 +147,27 @@ Phases, in order; any failure raises and the script exits non-zero:
             on the card against its CPU run within 1e-5, and its ms per
             block.  Each part's seconds.
 
+20. sharded the flagship at full width split over 4 time shards on one
+            card (ShardedReceiver(devices=["cuda:0"] * 4): 16,384 samples
+            and 16 fft1 frames a shard, 16 fits a shard) for 8 steps of
+            phase 4's input: no fused kernel (the JAX package takes none
+            under sharding); against the same over ["cpu"] * 4 for 6
+            steps (counts and liminfo signs exact, audio 1e-3 in step 0
+            and 1e-4 after, every other float 1e-4); against the card's
+            single-device Receiver with the stupid blanker off, as the JAX
+            test compares them (fits >= single - 1, baseb max|diff|/max
+            under 0.02; with it on, the per-step numbers are printed).
+            ShardedBatchRunner(k_steps=4) bit-equal to the streamed
+            receiver; ShardedMultiReceiver at K = 3, each row against a
+            ShardedReceiver on its dial within 1e-4; DistGroup at world
+            size 1 (NCCL, 4 local shards) bit-equal to LocalGroup;
+            FleetRunner(flagship, 8, device=["cuda:0", "cuda:0"])
+            bit-equal to the two 4-stream runners it composes and against
+            FleetRunner(device="cuda:0") to phase 4's bars, one fused_fft1
+            node per device's graph (2 per replayed step).  Then eager sharded step
+            ms and kernels per step at d = 1, 2, 4, 8 in turns, and the
+            parity report's five configurations at full width (all pass).
+
 ``python3 chip_smoke.py --stages`` runs phases 1 and 2 and then, instead
 of the smoke run, a diagnostic: the synced wall time of every stage of
 the multi-receiver step at K = 24 and K = 1.  ``--regimes`` likewise
@@ -156,8 +177,8 @@ after an eager loop).
 
 It prints a JSON line describing every kernel of the paths (launches
 summed over the flagship, EME, multi-receiver, real-input, batch,
-checkpoint, file, rounds, mxu, calibration, fleet and CW decode runs,
-each counted from zero; times
+checkpoint, file, rounds, mxu, calibration, fleet, CW decode and phase
+20's single-device and fleet runs, each counted from zero; times
 at the flagship's shape, and per shape under "by_shape"), then, as the
 last line, {"ok": true, "device": {...}}.
 """
@@ -246,6 +267,21 @@ VMAP_SLOW_PATH = "There is a performance drop"
 # repository's qualification (tests/test_weak.py::TestWeakSignalQualification)
 # at its full width, two (SNR dB in 2500 Hz, seed) runs that the JAX
 # package decodes exactly; the CW decode of test_full_chain_decode
+SHARD_D = 4
+SHARD_STEPS = 8
+SHARD_CPU_STEPS = 6
+SHARD_K = 4
+SHARD_SUB = 3
+SHARD_SUB_STEPS = 4
+SHARD_DIST_STEPS = 4
+SHARD_TIME_D = (1, 2, 4, 8)
+SHARD_TIME_STEPS = 4
+# card against CPU: audio 1e-3 in step 0 (the start-up, as phase 4's) and
+# 1e-4 after, every other float 1e-4; against the single-device step, the
+# JAX package's own bars (tests/test_sharded.py:132-136)
+SHARD_TOL = {"audio": 1e-4}
+SHARD_SINGLE_BASEB = 0.02
+SHARD_SUB_TOL = 1e-4
 QUAL_MSG = "CQ DX DE SM5BSZ"
 QUAL_RUNS = ((-2.0, 1000), (-6.0, 1001))
 QUAL_FC = 10_000.0
@@ -509,13 +545,16 @@ def check_outputs(outs: list, shapes: dict) -> None:
 
 def compare_runs(outs: list, ref: list, keys, label: str,
                  start_tol: dict | None = None,
-                 what: str = "pallas vs xla on the card") -> None:
+                 what: str = "pallas vs xla on the card",
+                 tol: dict | None = None) -> None:
     """The receiver through the kernel (outs) against the receiver through
     torch.fft (ref), or the two receivers ``what`` names: blanker counts
     and the liminfo sign pattern exact in every step, each float field
-    within its bar (step 0's audio within START_AUDIO_TOL, or step 0's
+    within its bar (CHAIN_TOL, or ``tol``; CHAIN_TOL_OTHER for a field
+    neither names; step 0's audio within START_AUDIO_TOL, or step 0's
     fields within ``start_tol``)."""
     start_tol = start_tol or {"audio": START_AUDIO_TOL}
+    tol = CHAIN_TOL if tol is None else tol
     # worst max_rel per field: over the start-up step, and over the rest
     start, steady = {}, {}
     for i, (a, b) in enumerate(zip(outs, ref)):
@@ -536,7 +575,7 @@ def compare_runs(outs: list, ref: list, keys, label: str,
     for span, worst in (("step 0", start),
                         (f"steps 1-{len(outs) - 1}", steady)):
         for k, v in worst.items():
-            bar = CHAIN_TOL.get(k, CHAIN_TOL_OTHER)
+            bar = tol.get(k, CHAIN_TOL_OTHER)
             if span == "step 0":
                 bar = start_tol.get(k, bar)
             print(f"{label}{what}, {span}: {k} max_rel {v:.3e} (bar {bar})")
@@ -2039,6 +2078,281 @@ def phase_fleet_timing(dev: dict, p, dials, iq: np.ndarray, fl) -> None:
     fused_fft1.launches = counted
 
 
+def shard_dial(geo) -> float:
+    """TUNE_HZ moved to the nearest fftx bin centre: the sharded steps tune
+    to whole bins, and a Receiver tuned there adds no fractional ramp, so
+    the two can be compared."""
+    fs, n = geo.timf1_sampling_speed, geo.fftx_size
+    return round(TUNE_HZ / fs * n) * fs / n
+
+
+def run_sharded(p, iq: np.ndarray, devices, tune_hz: float) -> list:
+    """A ShardedReceiver over ``devices`` (a list, or a shard group) tuned
+    to ``tune_hz`` over every step of iq; the outputs after the devices
+    have finished."""
+    from linrad_tpu_torch.parallel import ShardedReceiver
+    rx = ShardedReceiver(p, devices)
+    rx.tune(tune_hz)
+    outs = list(rx.run(iq))
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return outs
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max|a-b| / max|b|, the JAX package's sharded tests' measure."""
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind((LOOPBACK, 0))
+        return s.getsockname()[1]
+
+
+def phase_sharded(dev: dict, device="cuda", tiny: bool = False) -> int:
+    """The flagship split over SHARD_D time shards on one device.  Returns
+    the kernel's launches over the phase's runs that launch it (the
+    single-device Receiver compared with, and the two fleets)."""
+    from linrad_tpu_torch import derive_geometry, flagship_params
+    from linrad_tpu_torch.ops.fused_fft1 import fused_fft1
+    from linrad_tpu_torch.parallel import (ShardedBatchRunner,
+                                           ShardedMultiReceiver)
+    on_card = torch.device(device).type == "cuda"
+    p = dataclasses.replace(flagship_params(tiny=tiny), shards=SHARD_D)
+    geo = derive_geometry(p)
+    dial = shard_dial(geo)
+    iq = make_input(geo, steps=SHARD_STEPS)
+    card = [device] * SHARD_D
+    shapes = flagship_shapes(geo)
+    fused_fft1.launches = 0
+    t0 = time.perf_counter()
+    outs = run_sharded(p, iq, card, dial)
+    seconds = time.perf_counter() - t0
+    print(f"sharded: ShardedReceiver over {card}, {len(outs)} steps of "
+          f"{geo.samples_per_step} samples ({geo.samples_per_step // SHARD_D}"
+          f" a shard, {geo.fft1_frames_per_step // SHARD_D} fft1 frames), "
+          f"{seconds:.2f} s; fused_fft1 launches {fused_fft1.launches} (the "
+          f"sharded step takes no fused kernel, as the JAX package's); fits "
+          f"{[int(o.blanker_fitted) for o in outs]}, cleared "
+          f"{[int(o.blanker_cleared) for o in outs]}")
+    if fused_fft1.launches:
+        raise AssertionError("sharded: the sharded step launched the fused "
+                             "fft1 kernel")
+    check_outputs(outs, shapes)
+    if not tiny and max(int(o.blanker_fitted) for o in outs) == 0:
+        raise AssertionError("sharded: the blanker fitted nothing")
+    ref = run_sharded(p, iq[:SHARD_CPU_STEPS * geo.samples_per_step],
+                      ["cpu"] * SHARD_D, dial)
+    compare_runs(outs[:SHARD_CPU_STEPS], outputs_on(ref, device), shapes,
+                 "sharded: ",
+                 what=f"{device} x {SHARD_D} vs cpu x {SHARD_D}",
+                 tol=SHARD_TOL)
+    # against the single-device Receiver: the JAX test's comparison has
+    # the stupid blanker off (its threshold follows the noise floor, which
+    # the sharded step takes as the mean of per-shard despiked means, so
+    # one sample near it may be cleared on one side only)
+    single = run_rx(p, iq, device, tune_hz=dial)
+    print("sharded: with the stupid blanker on, baseb max|diff|/max per "
+          "step against the single-device Receiver " + str([
+              f"{rel_err(a.baseb, b.baseb):.1e}"
+              for a, b in zip(outs, single)]) + ", cleared "
+          f"{[int(o.blanker_cleared) for o in single]} (not held)")
+    q = dataclasses.replace(p, stupid_bln_limit=1e9)
+    outs_q = run_sharded(q, iq, card, dial)
+    fused_fft1.launches = 0
+    single = run_rx(q, iq, device, tune_hz=dial)
+    launches = fused_fft1.launches
+    fit_s = sum(int(o.blanker_fitted) for o in outs_q)
+    fit_1 = sum(int(o.blanker_fitted) for o in single)
+    rel = rel_err(torch.cat([o.baseb for o in outs_q]),
+                  torch.cat([o.baseb for o in single]))
+    print(f"sharded: stupid blanker off, against the single-device Receiver "
+          f"({launches} fused_fft1 launches): fits {fit_s} against {fit_1}, "
+          f"baseb max|diff|/max {rel:.3e} (bars: fits >= single - 1, under "
+          f"{SHARD_SINGLE_BASEB})")
+    if fit_s < fit_1 - 1 or rel >= SHARD_SINGLE_BASEB:
+        raise AssertionError("sharded: too far from the single-device step")
+    if on_card and launches != SHARD_STEPS:
+        raise AssertionError(f"sharded: the Receiver made {launches} "
+                             f"launches, expected {SHARD_STEPS}")
+
+    br = ShardedBatchRunner(p, k_steps=SHARD_K, outputs=("audio", "baseb"),
+                            devices=card)
+    br.tune(dial)
+    got = br.process(iq)
+    equal = all(np.array_equal(got[f], torch.cat(
+        [getattr(o, f) for o in outs]).cpu().numpy())
+        for f in ("audio", "baseb"))
+    print(f"sharded: ShardedBatchRunner(k_steps={SHARD_K}) over "
+          f"{SHARD_STEPS} steps bit-equal to the streamed receiver: {equal}")
+    if not equal:
+        raise AssertionError("sharded: batch runner differs from streamed")
+
+    dials = multi_dials(geo, SHARD_SUB)
+    iq3 = make_input(geo, seed=2, steps=SHARD_SUB_STEPS, tones=dials,
+                     tone_amplitude=MULTI_TONE_AMPLITUDE)
+    mx = ShardedMultiReceiver(p, SHARD_SUB, card)
+    for k, f in enumerate(dials):
+        mx.tune_subch(k, f)
+    mouts = list(mx.run(iq3))
+    for k, f in enumerate(dials):
+        one = run_sharded(p, iq3, card, f)
+        worst = {fld: max_rel(torch.cat([getattr(o, fld)[k] for o in mouts]),
+                              torch.cat([getattr(o, fld) for o in one]))
+                 for fld in ("audio", "baseb", "agc_gain")}
+        print(f"sharded: ShardedMultiReceiver sub-receiver {k} (dial "
+              f"{f:.1f} Hz) against a ShardedReceiver: " + ", ".join(
+                  f"{fld} max_rel {v:.3e}" for fld, v in worst.items())
+              + f" (bar {SHARD_SUB_TOL})")
+        # (at the tiny size sellim calls most bins strong, and the front's
+        # protected passband follows sub-receiver 0's dial only)
+        if max(worst.values()) > SHARD_SUB_TOL and not tiny:
+            raise AssertionError(f"sharded: sub-receiver {k} differs")
+
+    phase_dist_group(p, iq[:SHARD_DIST_STEPS * geo.samples_per_step],
+                     device, dial)
+    launches += phase_fleet_devices(dev, device, tiny)
+    if on_card:
+        phase_sharded_timing(dev, p, iq)
+        phase_parity_report(device)
+    return launches
+
+
+def phase_dist_group(p, iq: np.ndarray, device, dial: float) -> None:
+    """DistGroup at world size 1 (NCCL on a card, gloo on the CPU, from a
+    free localhost port) with SHARD_D local shards: bit-equal to
+    LocalGroup.  NCCL refuses two ranks on one card, so traffic between
+    processes is tested on the CPU only (tests/test_torch_multihost.py)."""
+    import torch.distributed as dist
+    from linrad_tpu_torch import derive_geometry
+    from linrad_tpu_torch.parallel import LocalGroup, global_time_mesh
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    dist.init_process_group(backend,
+                            init_method=f"tcp://{LOOPBACK}:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        outs = run_sharded(p, iq, global_time_mesh([device] * SHARD_D),
+                           dial)
+    finally:
+        dist.destroy_process_group()
+    ref = run_sharded(p, iq, LocalGroup([device] * SHARD_D), dial)
+    equal = all(torch.equal(getattr(a, f), getattr(b, f))
+                for a, b in zip(outs, ref)
+                for f in flagship_shapes(derive_geometry(p)))
+    print(f"sharded: DistGroup ({backend}, world size 1, {SHARD_D} local "
+          f"shards) against LocalGroup over {len(outs)} steps, every field "
+          f"bit-equal: {equal}")
+    if not equal:
+        raise AssertionError("sharded: DistGroup differs from LocalGroup")
+
+
+def phase_fleet_devices(dev: dict, device="cuda", tiny: bool = False) -> int:
+    """FleetRunner over [device, device]: bit-equal to the two runners of
+    half the streams it composes, and against one FleetRunner of all the
+    streams on device to phase 4's bars (the fused kernel sums each
+    channel's power in an order that depends on the channels a launch
+    serves).  Returns the kernel's launches of the four runners, as they
+    count them."""
+    from linrad_tpu_torch import derive_geometry, flagship_params
+    from linrad_tpu_torch.ops.fused_fft1 import fused_fft1
+    from linrad_tpu_torch.parallel import FleetRunner
+    on_card = torch.device(device).type == "cuda"
+    p = flagship_params(tiny=tiny, fft1_variant="pallas")
+    geo = derive_geometry(p)
+    dials = fleet_dials(geo, FLEET_R)
+    iq = np.stack([make_input(geo, steps=FLEET_STEPS, tones=(f,))[:, 0]
+                   for f in dials])
+    h = FLEET_R // 2
+
+    def fleet(n, where, lo=0):
+        fl = FleetRunner(p, n, k_steps=FLEET_K, outputs=FLEET_FIELDS,
+                         device=where, recorded=recorded_fft1)
+        fl.tune(dials[lo:lo + n])
+        return fl, fl.process(iq[lo:lo + n])
+
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=VMAP_SLOW_PATH)
+        fused_fft1.launches = 0
+        two, got = fleet(FLEET_R, [device, device])
+        halves = [fleet(h, device, lo) for lo in (0, h)]
+        one, ref = fleet(FLEET_R, device)
+    equal = all(np.array_equal(got[f], np.concatenate(
+        [out[f] for _fl, out in halves])) for f in FLEET_FIELDS)
+    bb = geo.baseband_samples_per_step
+    worst = {f: (max(max_rel(torch.from_numpy(got[f][r, :bb]),
+                             torch.from_numpy(ref[f][r, :bb]))
+                     for r in range(FLEET_R)),
+                 max(max_rel(torch.from_numpy(got[f][r, bb:]),
+                             torch.from_numpy(ref[f][r, bb:]))
+                     for r in range(FLEET_R))) for f in FLEET_FIELDS}
+    launches = (two.kernel_launches + one.kernel_launches
+                + sum(fl.kernel_launches for fl, _out in halves))
+    print(f"fleet devices: FleetRunner({FLEET_R} streams, device="
+          f"{[device, device]}) {FLEET_STEPS} steps: {two.kernels_per_replay}"
+          f" fused_fft1 node(s) per replayed step (one per device's graph), "
+          f"launches {two.kernel_launches}; bit-equal to two runners of {h} "
+          f"streams: {equal}; against one runner of {FLEET_R} streams ("
+          f"{one.kernels_per_replay} node per step, {one.kernel_launches} "
+          f"launches): " + "; ".join(
+              f"{f} step 0 max_rel {a:.3e}, steps 1-{FLEET_STEPS - 1} "
+              f"{b:.3e}" for f, (a, b) in worst.items())
+          + f"; wrapper calls {fused_fft1.launches} [{dev['smi']}]")
+    if not equal:
+        raise AssertionError("fleet devices: differs from its two runners")
+    bar0 = {"audio": START_AUDIO_TOL, "baseb": CHAIN_TOL_OTHER}
+    bar = {"audio": CHAIN_TOL["audio"], "baseb": CHAIN_TOL_OTHER}
+    if not tiny and any(a > bar0[f] or b > bar[f]
+                        for f, (a, b) in worst.items()):
+        raise AssertionError("fleet devices: outside phase 4's bars")
+    if on_card and (two.kernels_per_replay != 2
+                    or two.kernel_launches != 2 * FLEET_STEPS
+                    or one.kernel_launches != FLEET_STEPS):
+        raise AssertionError("fleet devices: expected one kernel launch per "
+                             "step on each device's graph")
+    return launches
+
+
+def phase_sharded_timing(dev: dict, p, iq: np.ndarray) -> None:
+    """Eager sharded step ms (CUDA events) and device kernels per step
+    (torch.profiler) at d = SHARD_TIME_D shards on one card, in turns."""
+    from linrad_tpu_torch import derive_geometry
+    from linrad_tpu_torch.parallel import ShardedReceiver
+    s = derive_geometry(p).samples_per_step
+    blocks = [torch.from_numpy(iq[i * s:(i + 1) * s]).cuda()
+              for i in range(2 + SHARD_TIME_STEPS)]
+    kernels: dict = {}
+    times: dict = {}
+    for d in SHARD_TIME_D + SHARD_TIME_D[::-1]:
+        rx = ShardedReceiver(dataclasses.replace(p, shards=d),
+                             ["cuda:0"] * d)
+        rx.tune(shard_dial(rx.geo))
+        for b in blocks[:2]:
+            rx.process_block(b)
+        if d not in kernels:
+            kernels[d] = profile_call(
+                lambda: rx.process_block(blocks[2]))["ops"]
+        ms = timed_ms(lambda: [rx.process_block(b)
+                               for b in blocks[2:]]) / SHARD_TIME_STEPS
+        times.setdefault(d, []).append(ms)
+        print(f"sharded timing d={d}: {ms:.3f} ms per eager step, "
+              f"{kernels[d]} device kernels and copies per step, "
+              f"{s / ms / 1e3:.3f} complex Msamples/s [{dev['smi']}]")
+    print("sharded timing: " + "; ".join(
+        f"d={d} {min(v):.3f}-{max(v):.3f} ms, x{min(v) / min(times[1]):.2f}"
+        f" of d=1" for d, v in times.items()))
+
+
+def phase_parity_report(device) -> None:
+    """The parity report's five configurations at full width on the card:
+    every one must pass."""
+    from linrad_tpu_torch.examples import parity_report
+    res = parity_report.main(device=device)
+    if not all(res["passed"].values()):
+        raise AssertionError(f"parity report: {res['passed']}")
+
+
 def qual_params():
     """The qualification's receiver: 96 kHz IQ, fft1 8192, 262,144
     samples per step, AFC and the coherent detector, AGC off."""
@@ -2390,6 +2704,7 @@ def main() -> None:
     launches += phase_calibration(dev)
     launches += phase_fleet(dev)
     launches += phase_weak(dev)
+    launches += phase_sharded(dev)
     print(json.dumps({"kernels": [{
         "name": "fused_fft1", "route": "cuda",
         "source": "linrad_tpu_torch/csrc/fused_fft1.cu",

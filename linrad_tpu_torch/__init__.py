@@ -33,8 +33,13 @@ data (``weak.eme``), the test modes (``modes``), the transmit chain
 (``tx``, its resampler on the device), the network taps and their
 publisher (``io.taps``, ``io.publish``), the displays (``viz``) and the
 web GUI (``io.httpd``), with twins of the JAX package's examples
-(``examples``).  ``shards>1`` raises NotImplementedError naming its
-ROADMAP entry; the time-sharded steps are still to come.
+(``examples``); and the scale-out layer (``parallel``): one stream split
+along time over several shards (``ShardedReceiver``,
+``ShardedMultiReceiver``, ``ShardedBatchRunner``) on the collectives of
+``parallel.group`` (one process, or the processes of a
+``torch.distributed`` group, ``parallel.multihost``), and the fleet over
+several devices.  Nothing of the JAX package is left unported but its
+TPU-only modules.
 
 This package never imports jax or ``linrad_tpu``;
 ``convert.params_from_jax`` turns the JAX package's ``RxParams`` into

@@ -185,27 +185,27 @@ def clever_blanker(weak: torch.Tensor, pwr: torch.Tensor,
     ``rounds`` > 0 selects the round-parallel variant instead: per round,
     the strongest candidate of every locally dominant block (of
     ``block_size or 256`` samples) is fitted and subtracted at once, so
-    the sequential depth is ``rounds``, not ``max_pulses``.  ``eligible``
-    (S,) bool restricts its candidate centres (the fit windows still read
-    every sample)."""
+    the sequential depth is ``rounds``, not ``max_pulses``.
+
+    ``eligible`` (S,) bool restricts the candidate centres of every variant
+    (the fit windows still read every sample): the time-sharded step marks
+    its halo samples ineligible, so that each pulse is fitted by exactly
+    one shard."""
     if rounds:
         return _clever_blanker_parallel(weak, pwr, tables, noise_floor,
                                         limit_amp, pulsewidth, rounds,
                                         block_size or 256, eligible)
-    if eligible is not None:
-        raise ValueError("clever_blanker: eligible needs rounds > 0")
     if block_size:
         return _clever_blanker_blocked(weak, pwr, tables, noise_floor,
                                        limit_amp, pulsewidth, max_pulses,
-                                       block_size)
+                                       block_size, eligible)
     s, _c = weak.shape
     pul = tables.refbank.shape[1]
     pw = pulsewidth
     thr = _threshold(limit_amp, noise_floor)
     wpad = _pad_rows(weak, pul, pul)
     ppad = _pad_rows(pwr, pul, pul)
-    active = _pad_rows(torch.ones(s, dtype=torch.bool, device=weak.device),
-                       pul, pul, False)
+    active = _pad_rows(_active(s, weak.device, eligible), pul, pul, False)
     total = wpad.shape[0]
     span = torch.arange(2 * pw + 1, device=weak.device)
     nfit = torch.zeros((), dtype=torch.int32, device=weak.device)
@@ -221,8 +221,16 @@ def clever_blanker(weak: torch.Tensor, pwr: torch.Tensor,
     return wpad[pul: pul + s], ppad[pul: pul + s], nfit
 
 
+def _active(s: int, device, eligible: torch.Tensor | None) -> torch.Tensor:
+    """The candidate centres a sequential scan starts from: all S samples,
+    or the ``eligible`` ones."""
+    if eligible is None:
+        return torch.ones(s, dtype=torch.bool, device=device)
+    return eligible
+
+
 def _clever_blanker_blocked(weak, pwr, tables, noise_floor, limit_amp,
-                            pulsewidth, max_pulses, blk):
+                            pulsewidth, max_pulses, blk, eligible=None):
     """Hierarchical candidate search: block maxima kept up to date so each
     iteration reads O(S/blk + blk) values.  Selection order matches the
     flat scan (the global argmax is the argmax over block maxima)."""
@@ -240,8 +248,7 @@ def _clever_blanker_blocked(weak, pwr, tables, noise_floor, limit_amp,
     trail = total - s - lead
     wpad = _pad_rows(weak, lead, trail)
     ppad = _pad_rows(pwr, lead, trail)
-    active = _pad_rows(torch.ones(s, dtype=torch.bool, device=dev), lead,
-                       trail, False)
+    active = _pad_rows(_active(s, dev, eligible), lead, trail, False)
     candp = torch.where(active, ppad, -1.0)
     nblk = total // blk
     bmax = candp.reshape(nblk, blk).amax(1)

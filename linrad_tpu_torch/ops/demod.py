@@ -42,11 +42,17 @@ def bfo_ssb(state: BFOState, baseb: torch.Tensor, bfo_hz: float,
     """audio = Re{z * exp(i*2*pi*bfo*t)}; baseb (..., S, C) complex64."""
     s = baseb.shape[-2]
     dphi = float(np.float32(2.0 * math.pi * bfo_hz / fs))
-    ph = state.phase[..., None] + dphi * torch.arange(
-        s, dtype=torch.float32, device=baseb.device)
+    # phase + dphi*n rounded to float32 once, as XLA contracts it into a
+    # fused multiply-add: a product and a sum rounded apart put the
+    # argument, thousands of radians by the end of a step, one ulp away
+    # (2.4e-4 rad at 4,096 samples), and the audio as far from JAX's
+    phase = state.phase.to(torch.float64)
+    ph = (phase[..., None] + dphi * torch.arange(
+        s, dtype=torch.float64, device=baseb.device)).to(torch.float32)
     lo = torch.complex(torch.cos(ph), torch.sin(ph))
     audio = (baseb * lo[..., None]).real
-    new_phase = torch.remainder(state.phase + dphi * s, 2.0 * math.pi)
+    new_phase = torch.remainder((phase + dphi * s).to(torch.float32),
+                                2.0 * math.pi)
     return BFOState(phase=new_phase), audio
 
 

@@ -100,8 +100,8 @@ class FFT1State:
 
 
 def fft1_step(geo: Geometry, tables: FFT1Tables, state: FFT1State,
-              block: torch.Tensor, avg1num: int, variant: str | None = None
-              ) -> tuple[FFT1State, torch.Tensor, torch.Tensor]:
+              block, avg1num: int, variant: str | None = None,
+              reduce=None):
     """Transform one step of input.
 
     block: (samples_per_step, C) complex64, or (2*samples_per_step, C)
@@ -112,8 +112,24 @@ def fft1_step(geo: Geometry, tables: FFT1Tables, state: FFT1State,
 
     ``variant="pallas"`` launches the fused kernel for IQ input without
     ``iq_corr``; with real input or ``iq_corr`` it runs the torch.fft path
-    (the JAX package's own dispatch, not a fallback)."""
+    (the JAX package's own dispatch, not a fallback).
+
+    ``reduce`` is the time-sharded step's hook, the JAX version's
+    ``axis_name``: ``tables``, ``state.tail`` and ``block`` are then lists
+    with one entry per local shard (the caller exchanges the framing tails
+    between shards), and ``reduce`` maps the list of the shards' mean power
+    spectra to their mean over every shard (``parallel.group``'s
+    ``pmean``), so that ``step_power`` and ``sumsq_avg`` are the one
+    replicated value.  The spectra and new tails come back as lists.  As
+    in the JAX package, a reduced call never takes the fused kernel."""
     alpha = min(1.0, geo.fft1_frames_per_step / max(avg1num, 1))
+    if reduce is not None:
+        parts = [_spectra(geo, t, tail, b, None)
+                 for t, tail, b in zip(tables, state.tail, block)]
+        specs, tails, powers = (list(x) for x in zip(*parts))
+        step_power = reduce(powers)
+        sumsq = state.sumsq_avg * (1.0 - alpha) + step_power * alpha
+        return FFT1State(tail=tails, sumsq_avg=sumsq), specs, step_power
     if geo.iq_input and variant == "pallas" and tables.iq_corr is None:
         frames, new_tail = frame_stream(state.tail, block, geo.fft1_size,
                                         geo.fft1_new_points)
@@ -123,13 +139,23 @@ def fft1_step(geo: Geometry, tables: FFT1Tables, state: FFT1State,
         return FFT1State(tail=new_tail, sumsq_avg=sumsq), spec, step_power
     if variant == "pallas":  # real input or iq_corr: no fused path
         variant = None
+    spec, new_tail, step_power = _spectra(geo, tables, state.tail, block,
+                                          variant)
+    sumsq = state.sumsq_avg * (1.0 - alpha) + step_power * alpha
+    return FFT1State(tail=new_tail, sumsq_avg=sumsq), spec, step_power
+
+
+def _spectra(geo: Geometry, tables: FFT1Tables, tail: torch.Tensor,
+             block: torch.Tensor, variant: str | None):
+    """The unfused transform of one block: (calibrated spectra, new tail,
+    their mean power spectrum)."""
     if geo.iq_input:
-        frames, new_tail = frame_stream(state.tail, block, geo.fft1_size,
+        frames, new_tail = frame_stream(tail, block, geo.fft1_size,
                                         geo.fft1_new_points)
         spec = fftlib.fft(frames * tables.window[None, :, None], axis=1,
                           variant=variant)
     else:
-        spec, new_tail = fft1_real_step(geo, tables.window, state.tail, block)
+        spec, new_tail = fft1_real_step(geo, tables.window, tail, block)
     if tables.iq_corr is not None:
         # I/Q image correction X'[k] = X[k] - c[k]*conj(X[-k])
         # (expand_foldcorr application, caliq.c:40-80); the mirror index
@@ -137,9 +163,7 @@ def fft1_step(geo: Geometry, tables: FFT1Tables, state: FFT1State,
         mirror = torch.roll(torch.flip(spec, dims=(1,)), 1, dims=1).conj()
         spec = spec - tables.iq_corr[None, :, :] * mirror
     spec = spec * tables.filtercorr[None, :, :]
-    step_power = (spec.real ** 2 + spec.imag ** 2).mean(0)
-    sumsq = state.sumsq_avg * (1.0 - alpha) + step_power * alpha
-    return FFT1State(tail=new_tail, sumsq_avg=sumsq), spec, step_power
+    return spec, new_tail, (spec.real ** 2 + spec.imag ** 2).mean(0)
 
 
 def fft1_real_step(geo: Geometry, window2n: torch.Tensor, tail: torch.Tensor,

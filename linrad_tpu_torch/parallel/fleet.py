@@ -12,14 +12,16 @@ carried batched; the tables are shared.
 
 The batched step is captured into a CUDA graph and replayed K times per
 call, as :class:`..pipeline.batch.BatchRunner` replays the single step.
-On ``device="cpu"`` it runs eagerly.  The JAX runner spreads the streams
-over a device mesh; this one runs on one card (several cards come with
-the time-sharded steps, ROADMAP queue 1 item 6).
+On ``device="cpu"`` it runs eagerly.  Over several devices, as the JAX
+runner's ``devices=`` mesh, each device runs its own such runner on
+n/d of the streams (no communication between them), and a call enqueues
+their K replays in turns before it waits for any.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import numpy as np
 import torch
@@ -66,27 +68,40 @@ class FleetRunner(BatchRunner):
     per call.
 
     Each stream has its own carried state and its own tune frequency; the
-    parameters, geometry and tables are shared.  ``device`` is one device;
-    a list of more than one raises NotImplementedError (the JAX runner's
-    ``devices=`` mesh: ROADMAP queue 1 item 6).  ``recorded``: the
-    caller's count of kernel calls recorded into CUDA graphs, as for
+    parameters, geometry and tables are shared.  ``device`` is one device,
+    or a list of them (the JAX runner's ``devices=`` mesh): over d devices
+    each runs n_streams/d of the streams, stream order device-major, and
+    n_streams must be a multiple of d.  ``recorded``:
+    the caller's count of kernel calls recorded into CUDA graphs, as for
     :class:`..pipeline.batch.BatchRunner`."""
 
     def __init__(self, params, n_streams: int, k_steps: int = 8,
                  outputs: tuple = ("audio",), *, device="cuda",
                  recorded=None):
-        if isinstance(device, (list, tuple)):
-            if len(device) > 1:
-                raise NotImplementedError(
-                    "FleetRunner over several devices is not ported yet "
-                    "(ROADMAP queue 1 item 6)")
-            device = device[0]
-        self._setup(params, k_steps, outputs, None, device, recorded)
+        devices = device if isinstance(device, (list, tuple)) else [device]
+        self.n = int(n_streams)
+        if self.n % len(devices):
+            raise ValueError(f"FleetRunner: {self.n} streams do not split "
+                             f"over {len(devices)} devices")
+        self.parts = [self]
+        if len(devices) > 1:
+            self.parts = [FleetRunner(params, self.n // len(devices),
+                                      k_steps, outputs, device=dev,
+                                      recorded=recorded)
+                          for dev in devices]
+            first = self.parts[0]
+            self.device, self.params, self.geo = (first.device, first.params,
+                                                  first.geo)
+            self.k, self.outputs, self.tables = (first.k, first.outputs,
+                                                 first.tables)
+            self.kernels_per_replay = sum(p.kernels_per_replay
+                                          for p in self.parts)
+            return
+        self._setup(params, k_steps, outputs, None, devices[0], recorded)
         geo = self.geo
         if not geo.iq_input:
             raise ValueError("FleetRunner: IQ input only, as in the JAX "
                              "package")
-        self.n = int(n_streams)
         one = self._new_state()
         state = _map_tensors(
             lambda x: x[None].expand((self.n,) + tuple(x.shape)).clone(), one)
@@ -100,10 +115,53 @@ class FleetRunner(BatchRunner):
                                     geo.channels), torch.complex64,
                       (self._tune_bins, self._tune_fracs))
 
+    @property
+    def state(self):
+        """The carried state of every stream, stream axis in front (over
+        several devices: a copy gathered onto the first one)."""
+        if len(self.parts) == 1:
+            return self.graphed.state
+        leaves = [tensor_leaves(p.graphed.state) for p in self.parts]
+        cat = [torch.cat([x.to(self.device) for x in group])
+               for group in zip(*leaves)]
+        return _rebuild(self.parts[0].graphed.state, cat)
+
+    @property
+    def kernel_launches(self) -> int:
+        """Launches of the counted kernels made by the replays, over every
+        device (``kernels_per_replay`` sums the devices' graphs)."""
+        return sum(p.kernels_per_replay * p.graphed.replays
+                   for p in self.parts)
+
+    def process(self, iq: np.ndarray) -> dict[str, np.ndarray]:
+        """iq (n_streams, T) or (n_streams, T, C) -> {field: (n_streams,
+        T_out, C)}; trailing samples short of a K-step call are dropped.
+        Over several devices each call is enqueued on every device before
+        the host waits for any."""
+        if len(self.parts) == 1:
+            return super().process(iq)
+        if iq.shape[0] != self.n:
+            raise ValueError(f"FleetRunner: {iq.shape[0]} streams, expected "
+                             f"{self.n}")
+        m = self.n // len(self.parts)
+        collected = [{f: [] for f in self.outputs} for _ in self.parts]
+        calls = [p._calls(p._segments(iq[j * m:(j + 1) * m]), c)
+                 for j, (p, c) in enumerate(zip(self.parts, collected))]
+        for _ in itertools.zip_longest(*calls):
+            pass
+        return {f: np.concatenate([p._concat(c[f]) for p, c in
+                                   zip(self.parts, collected)])
+                for f in self.outputs}
+
     def tune(self, freqs_hz) -> None:
         """Per-stream tune frequencies (a scalar is every stream's): the
         nearest fftx bin and the fractional-bin ramp, as Receiver.tune."""
         f = np.broadcast_to(np.asarray(freqs_hz, np.float64), (self.n,))
+        if len(self.parts) > 1:
+            m = self.n // len(self.parts)
+            for j, p in enumerate(self.parts):
+                p.tune(f[j * m:(j + 1) * m])
+            return
         n = self.geo.fftx_size
         t1 = f / self.geo.timf1_sampling_speed * n
         bins = np.round(t1).astype(np.int64)

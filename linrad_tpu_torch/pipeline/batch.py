@@ -315,9 +315,15 @@ class BatchRunner:
     def process(self, iq: np.ndarray) -> dict[str, np.ndarray]:
         """Process a recording; returns concatenated output streams.
         Trailing samples short of a full K-step call are dropped."""
-        segments = self._segments(iq)
-        n_calls = len(segments)
         collected: dict[str, list] = {f: [] for f in self.outputs}
+        for _ in self._calls(self._segments(iq), collected):
+            pass
+        return {f: self._concat(v) for f, v in collected.items()}
+
+    def _calls(self, segments: list, collected: dict):
+        """Run one call per segment into ``collected``; yields after each
+        call is enqueued, so that a caller can drive runners on several
+        devices in turns, and returns once every output is on the host."""
 
         def drain(slot: _Slot) -> None:
             if slot.busy:
@@ -330,17 +336,21 @@ class BatchRunner:
                 self._blocks.copy_(torch.from_numpy(np.ascontiguousarray(seg)))
                 self._run_call()
                 self._collect(self._stacks, collected)
+                yield
                 continue
-            slot = self._slots[i % 2]
-            drain(slot)                         # call i-2 has left it
-            slot.inp.numpy()[...] = seg
-            self._blocks.copy_(slot.inp, non_blocking=True)
-            self._run_call()
-            for f in self.outputs:
-                slot.out[f].copy_(self._stacks[f], non_blocking=True)
-            slot.done.record()
-            slot.busy = True
+            # the runner's card is the current device while it enqueues:
+            # the replays and the event go to that card's stream
+            with torch.cuda.device(self.device):
+                slot = self._slots[i % 2]
+                drain(slot)                     # call i-2 has left it
+                slot.inp.numpy()[...] = seg
+                self._blocks.copy_(slot.inp, non_blocking=True)
+                self._run_call()
+                for f in self.outputs:
+                    slot.out[f].copy_(self._stacks[f], non_blocking=True)
+                slot.done.record()
+                slot.busy = True
+            yield
         if self._slots is not None:
-            drain(self._slots[n_calls % 2])
-            drain(self._slots[(n_calls + 1) % 2])
-        return {f: self._concat(v) for f, v in collected.items()}
+            drain(self._slots[len(segments) % 2])
+            drain(self._slots[(len(segments) + 1) % 2])

@@ -18,8 +18,9 @@ runs it with no leading axis; :func:`make_multi_rx_step` runs the same
 code once on an ``NBState`` stacked over K sub-receivers, so K
 sub-receivers cost one set of device operations, not K.
 
-Not ported yet, and refused by :func:`check_supported`: time-sharded
-steps (``shards>1``).
+A ``shards=d`` configuration only changes the geometry (every stage's
+frames divide by d): this step runs it on one device, and
+:mod:`..parallel.sharded` runs the same stages split over d shards.
 """
 
 from __future__ import annotations
@@ -49,13 +50,6 @@ from ..params import Demod, RxParams
 from ..weak.pol import PolState, project, update_polarization
 from ..weak.spur import (SpurState, spur_subtract_step,
                          window_template_table)
-
-
-def check_supported(p: RxParams) -> None:
-    """Raise NotImplementedError for a configuration the port lacks."""
-    if p.shards != 1:
-        raise NotImplementedError("not ported yet: time-sharded steps, "
-                                  "shards>1 (ROADMAP queue 1 item 6)")
 
 
 @dataclass(frozen=True)
@@ -398,7 +392,6 @@ def make_rx_step(geo: Geometry, p: RxParams, blanker_pulsewidth: int = 2,
     (mix1.c:781), so any dial frequency lands exactly at DC, and
     ``tune_slope``, the per-frame drift in bins per hop that the AFC
     supplies while it tracks."""
-    check_supported(p)
 
     def step(tables: RxTables, state: RxState, block: torch.Tensor,
              tune_bin: torch.Tensor, tune_frac: torch.Tensor | None = None,
@@ -435,7 +428,6 @@ def make_multi_rx_step(geo: Geometry, p: RxParams,
     per-frame tuning of each sub-receiver (integer bins only: no
     tune_frac).  outputs.audio/baseb/agc_gain carry the K axis in front;
     the narrowband fields of ``state`` pass through unchanged."""
-    check_supported(p)
 
     def step(tables: RxTables, state: RxState, nbs: NBState,
              block: torch.Tensor, tune_bins: torch.Tensor):

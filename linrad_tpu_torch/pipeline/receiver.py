@@ -18,9 +18,7 @@ CPU by itself.
 
 ``Receiver.run_file`` replays a WAV recording through the runtime's file
 prefetcher (disk reads overlap the device's work) and stages each block
-through page-locked memory.  Configurations that
-:func:`..pipeline.chain.check_supported` refuses raise
-NotImplementedError.
+through page-locked memory.
 """
 
 from __future__ import annotations
@@ -37,7 +35,7 @@ from ..geometry import Geometry, derive_geometry
 from ..ops.blanker import BlankerTables
 from ..ops.resample import Resampler
 from ..params import Demod, RxParams
-from .chain import (NBState, RxOutputs, RxState, RxTables, check_supported,
+from .chain import (NBState, RxOutputs, RxState, RxTables,
                     make_multi_rx_step, make_rx_step)
 from .control import WeakSignalControl
 
@@ -129,7 +127,6 @@ class Receiver:
         audio_out_rate: resample the audio to this rate (the rx_output
         D/A resampler, rxout.c:266); it must give an integer output count
         per step (exact rational, ops/resample.py)."""
-        check_supported(params)
         self.device = resolve_device(device)
         self.params = params
         self.geo: Geometry = derive_geometry(params)
@@ -407,7 +404,6 @@ class MultiReceiver:
 
     def __init__(self, params: RxParams, n_subch: int,
                  calibration: dict | None = None, *, device="cuda"):
-        check_supported(params)
         self.device = resolve_device(device)
         self.params = params
         self.n_subch = n_subch

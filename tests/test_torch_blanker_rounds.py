@@ -145,18 +145,18 @@ def test_parallel_dense_cluster_suppression():
 
 
 def test_eligible_restricts_centres():
-    """No eligible centre: nothing is fitted and nothing changes; the
-    sequential variants take no eligible mask."""
+    """No eligible centre: nothing is fitted and nothing changes, in the
+    round-parallel variant and in both sequential ones (flat scan and
+    blocked search), as in the JAX package."""
     _c, weak, pwr, _ = _case("dense")
     _j, t_tab, pw = _tables()
     w, p = torch.from_numpy(weak), torch.from_numpy(pwr)
     none = torch.zeros(w.shape[0], dtype=torch.bool)
-    w2, p2, n = tbl.clever_blanker(w, p, t_tab, torch.tensor(0.04), 6.0, pw,
-                                   16, rounds=8, eligible=none)
-    assert int(n) == 0 and torch.equal(w2, w) and torch.equal(p2, p)
-    with pytest.raises(ValueError, match="rounds"):
-        tbl.clever_blanker(w, p, t_tab, torch.tensor(0.04), 6.0, pw, 16,
-                           eligible=none)
+    for rounds, block in ((8, 256), (0, 0), (0, 256)):
+        w2, p2, n = tbl.clever_blanker(w, p, t_tab, torch.tensor(0.04), 6.0,
+                                       pw, 16, block_size=block,
+                                       rounds=rounds, eligible=none)
+        assert int(n) == 0 and torch.equal(w2, w) and torch.equal(p2, p)
 
 
 @pytest.mark.parametrize("rounds", [0, 8])
@@ -182,3 +182,37 @@ def test_blankers_under_vmap(rounds):
         w, p, n = one(weak[r], pwr[r], nf[r])
         assert int(vn[r]) == int(n) > 0
         assert torch.equal(vw[r], w) and torch.equal(vp[r], p)
+
+
+# pulses centred in the first and last 64 samples, which the mask below
+# makes ineligible, beside pulses inside
+EDGES = [(30, 0.2, 30.0), (50, -0.1, 20.0), (700, 0.1, 25.0),
+         (1400, -0.3, 22.0), (2010, 0.3, 28.0), (2030, 0.0, 35.0)]
+
+
+@pytest.mark.parametrize("block", [0, 256])
+def test_sequential_eligible_against_jax(block):
+    """rounds=0 with ``eligible`` (the time-sharded step's halo mask),
+    flat scan and blocked search: a mask that blanks the first and last
+    64 samples; counts exact, weak' and pwr' within 1e-5 of JAX's, and
+    fewer fits than without the mask (the edge pulses stay)."""
+    s = 2048
+    weak, pwr = _stream(13, s, 1, EDGES)
+    elig = np.ones(s, bool)
+    elig[:64] = elig[-64:] = False
+    j_tab, t_tab, pw = _tables()
+    jw, jp, jn = jax.jit(lambda w, p, e: jbl.clever_blanker(
+        w, p, j_tab, jnp.float32(0.04), 6.0, pw, 16, block_size=block,
+        rounds=0, eligible=e))(jnp.asarray(weak), jnp.asarray(pwr),
+                               jnp.asarray(elig))
+    args = (torch.from_numpy(weak), torch.from_numpy(pwr), t_tab,
+            torch.tensor(0.04), 6.0, pw, 16)
+    tw, tp, tn = tbl.clever_blanker(*args, block_size=block, rounds=0,
+                                    eligible=torch.from_numpy(elig))
+    _w, _p, t_all = tbl.clever_blanker(*args, block_size=block, rounds=0)
+    assert int(tn) == int(jn) > 0
+    assert int(t_all) > int(tn)
+    for a, b in ((tw.numpy(), np.asarray(jw)), (tp.numpy(), np.asarray(jp))):
+        assert np.abs(a - b).max() / np.abs(b).max() <= 1e-5
+    # the ineligible edges keep their pulses
+    assert np.abs(tw.numpy()[20:60] - weak[20:60]).max() == 0.0

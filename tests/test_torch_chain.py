@@ -30,7 +30,7 @@ from linrad_tpu.calibration import make_filtercorr
 from linrad_tpu.pipeline.receiver import Receiver as JaxReceiver
 from linrad_tpu_torch import Demod, InputMode, convert
 from linrad_tpu_torch import derive_geometry as t_derive_geometry
-from linrad_tpu_torch.pipeline.chain import make_rx_step
+from linrad_tpu_torch.pipeline.chain import RxState, make_rx_step
 from linrad_tpu_torch.pipeline.receiver import (MultiReceiver, Receiver,
                                                 Transport)
 
@@ -213,13 +213,11 @@ def test_cuda_device_requires_cuda():
         MultiReceiver(T_CONFIGS["pallas"], 2)
 
 
-REFUSED_PARAMS = {
-    "shards": dict(shards=2),
-}
-
 # refused before they were ported; tests/test_torch_eme.py,
-# tests/test_torch_options.py and the CONFIGS above hold them against JAX
+# tests/test_torch_options.py, tests/test_torch_sharded*.py and the CONFIGS
+# above hold them against JAX
 PORTED_PARAMS = {
+    "shards": dict(shards=2),
     "blanker-rounds": dict(blanker_rounds=2),
     "mxu": dict(fft1_variant="mxu"),
     "mxu-bf16": dict(fft1_variant="mxu_bf16"),
@@ -263,15 +261,34 @@ def test_calibration_positional():
     assert not torch.equal(powers[0], powers[1])
 
 
-@pytest.mark.parametrize("name", list(REFUSED_PARAMS))
-def test_refused_configuration(name):
-    p = dataclasses.replace(_T_TINY, **REFUSED_PARAMS[name])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Receiver(p, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_rx_step(None, p)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MultiReceiver(p, 2, device="cpu")
+def test_shards_on_one_device():
+    """A shards=2 configuration (the sharded geometry) runs on one device
+    through make_rx_step, Receiver and MultiReceiver alike: the step's
+    first outputs equal the Receiver's, and MultiReceiver's row 0 tuned to
+    the single step tuned to the same bin (atol 1e-5, as
+    tests/test_torch_multi.py holds the rows)."""
+    p = dataclasses.replace(_T_TINY, fft1_variant="xla", shards=2)
+    geo = t_derive_geometry(p)
+    assert geo.fft1_frames_per_step % 2 == 0
+    rx = Receiver(p, device="cpu")
+    rx.tune(TUNE_HZ)
+    block = _input(geo)[: geo.samples_per_step]
+    state0 = rx.state
+    out = rx.process_block(block)
+    step = make_rx_step(geo, p, rx.blanker_pulsewidth, True)
+    _s, out2 = step(rx.tables, state0, torch.from_numpy(block),
+                    rx._tune_bin, rx._tune_frac)
+    for f in FIELDS:
+        assert torch.equal(getattr(out, f), getattr(out2, f)), f
+    mrx = MultiReceiver(p, 2, device="cpu")
+    mrx.tune_subch(0, TUNE_HZ)
+    mout = mrx.process_block(block)
+    plain = make_rx_step(geo, p, rx.blanker_pulsewidth)
+    _s, out3 = plain(mrx.tables, RxState.create(geo, "cpu"),
+                     torch.from_numpy(block), mrx._tune_bins[0])
+    np.testing.assert_allclose(mout.audio[0].numpy(), out3.audio.numpy(),
+                               atol=1e-5)
+    assert float(out3.audio.abs().max()) > 0
 
 
 @pytest.mark.parametrize("name", list(PORTED_PARAMS))

@@ -24,7 +24,7 @@ import torch
 
 from __graft_entry__ import _flagship_params
 from linrad_tpu.parallel import FleetRunner as JaxFleetRunner
-from linrad_tpu_torch import InputMode, convert
+from linrad_tpu_torch import InputMode, convert, derive_geometry
 from linrad_tpu_torch.ops.fused_fft1 import fused_fft1
 from linrad_tpu_torch.parallel import FleetRunner
 from linrad_tpu_torch.pipeline.receiver import Receiver
@@ -40,6 +40,7 @@ BARS = {"audio": 2.3e-4, "baseb": 1e-4}
 DIALS = 12_000.0 + np.array([0.0, 3_330.7, -7_777.3])
 JP = dataclasses.replace(_flagship_params(tiny=True), fft1_variant="pallas")
 TP = convert.params_from_jax(JP)
+TP_GEO = derive_geometry(TP)
 
 
 def _max_rel(a, b) -> float:
@@ -171,8 +172,8 @@ def test_fleet_tune_broadcast():
 
 
 def test_fleet_refusals():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FleetRunner(TP, 2, device=["cpu", "cpu"])
+    with pytest.raises(ValueError, match="split"):
+        FleetRunner(TP, 3, device=["cpu", "cpu"])
     with pytest.raises(ValueError, match="IQ"):
         FleetRunner(dataclasses.replace(TP, input_mode=InputMode.REAL), 2,
                     device="cpu")
@@ -213,3 +214,37 @@ def test_fused_fft1_vmap_rule(batched):
         torch.func.vmap(fused_fft1, in_dims=(None, 0, None))(
             frames[0] if bf else frames, window[None].expand(R, n),
             fc[0] if bc else fc)
+
+
+def test_fleet_over_two_devices():
+    """FleetRunner over ["cpu", "cpu"] (two runners of 2 streams, calls
+    enqueued in turns) against one runner of 4 on one device, within 1e-6,
+    and against the JAX FleetRunner over two devices (its stream axis
+    sharded over jax.devices()[:2]) within the bars; the dials split in
+    stream order, the state gathered in stream order."""
+    dials = np.concatenate([DIALS, [12_000.0 + 5_555.5]])
+    iq = np.concatenate([_streams(TP_GEO), _streams(TP_GEO)[:1] * 0.5])
+    two = FleetRunner(TP, 4, k_steps=K, outputs=FIELDS,
+                      device=["cpu", "cpu"])
+    one = FleetRunner(TP, 4, k_steps=K, outputs=FIELDS, device="cpu")
+    jfl = JaxFleetRunner(JP, n_streams=4, k_steps=K, outputs=FIELDS,
+                         devices=jax.devices()[:2])
+    for fl in (two, one, jfl):
+        fl.tune(dials)
+    assert len(two.parts) == 2 and all(p.n == 2 for p in two.parts)
+    assert two.parts[1]._tune_bins.tolist() == one._tune_bins[2:].tolist()
+    got, ref, j_out = two.process(iq), one.process(iq), jfl.process(iq)
+    for f in FIELDS:
+        assert got[f].shape == ref[f].shape == j_out[f].shape
+        np.testing.assert_allclose(got[f], ref[f], atol=1e-6, rtol=0)
+        for r in range(4):
+            assert _max_rel(got[f][r], j_out[f][r]) <= BARS[f], (f, r)
+    s_two = convert.state_to_numpy(two.state)
+    for k, v in convert.state_to_numpy(one.state).items():
+        assert s_two[k].shape == v.shape and s_two[k].shape[0] == 4, k
+        if v.dtype.kind in "iub":
+            np.testing.assert_array_equal(s_two[k], v, err_msg=k)
+        else:
+            assert _max_rel(s_two[k], v) <= 1e-6, k
+    assert two.samples_per_call == one.samples_per_call
+    assert two.kernel_launches == one.kernel_launches == 0

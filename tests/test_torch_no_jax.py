@@ -23,6 +23,7 @@ MODULES = [
     "linrad_tpu_torch.examples.demo_multirx",
     "linrad_tpu_torch.examples.demo_rx",
     "linrad_tpu_torch.examples.demo_tx",
+    "linrad_tpu_torch.examples.parity_report",
     "linrad_tpu_torch.examples.serve_rx",
     "linrad_tpu_torch.geometry",
     "linrad_tpu_torch.io.httpd",
@@ -51,6 +52,9 @@ MODULES = [
     "linrad_tpu_torch.ops.windows",
     "linrad_tpu_torch.parallel",
     "linrad_tpu_torch.parallel.fleet",
+    "linrad_tpu_torch.parallel.group",
+    "linrad_tpu_torch.parallel.multihost",
+    "linrad_tpu_torch.parallel.sharded",
     "linrad_tpu_torch.pipeline",
     "linrad_tpu_torch.pipeline.batch",
     "linrad_tpu_torch.pipeline.chain",
@@ -117,7 +121,9 @@ def test_modules_list_is_complete():
     assert found - subpackages == set(MODULES)
     for sub in ("io.", "runtime", "weak.radar", "pipeline.batch",
                 "calibration", "parallel.fleet", "weak.cw", "tx.stream",
-                "io.httpd", "examples.serve_rx"):
+                "io.httpd", "examples.serve_rx", "parallel.sharded",
+                "parallel.group", "parallel.multihost",
+                "examples.parity_report"):
         assert any(m.startswith("linrad_tpu_torch." + sub) for m in MODULES)
 
 
@@ -339,6 +345,44 @@ def test_cpu_fleet_and_variants_do_not_import_jax():
         "rx.tune(1000.0)\n"
         "outs = list(rx.run(iq[0]))\n"
         "assert len(outs) == 2\n"
+        + FOREIGN)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]", proc.stdout
+
+
+def test_cpu_sharded_receivers_do_not_import_jax():
+    """A tiny ShardedReceiver over LocalGroup(["cpu"] * 2) with the
+    blanker runs 2 steps, a ShardedMultiReceiver of 2 sub-receivers and a
+    ShardedBatchRunner one call each, the multihost helpers split a
+    block, and FleetRunner runs over two CPU devices, all jax-free."""
+    proc = _run(
+        "import sys, dataclasses, numpy as np\n"
+        "from linrad_tpu_torch import flagship_params\n"
+        "from linrad_tpu_torch.parallel import (FleetRunner, LocalGroup, "
+        "ShardedBatchRunner, ShardedMultiReceiver, ShardedReceiver, "
+        "host_rows, scatter_step_block)\n"
+        "p = dataclasses.replace(flagship_params(tiny=True), shards=2)\n"
+        "rx = ShardedReceiver(p, ['cpu', 'cpu'])\n"
+        "rx.tune(1000.0)\n"
+        "rng = np.random.default_rng(0)\n"
+        "n = 2 * rx.geo.samples_per_step\n"
+        "iq = (rng.normal(size=n) + 1j * rng.normal(size=n))"
+        ".astype(np.complex64)\n"
+        "outs = list(rx.run(iq))\n"
+        "assert len(outs) == 2 and outs[-1].audio.shape == "
+        "(rx.geo.baseband_samples_per_step, 1)\n"
+        "mx = ShardedMultiReceiver(p, 2, ['cpu', 'cpu'])\n"
+        "assert mx.process_block(iq[:n // 2]).audio.shape[0] == 2\n"
+        "br = ShardedBatchRunner(p, k_steps=2, devices=['cpu', 'cpu'])\n"
+        "assert br.process(iq)['audio'].shape == "
+        "(2 * rx.geo.baseband_samples_per_step, 1)\n"
+        "g = LocalGroup(['cpu', 'cpu'])\n"
+        "assert host_rows(g, rx.geo) == (0, n // 2)\n"
+        "assert len(scatter_step_block(g, rx.geo, iq[:n // 2])) == 2\n"
+        "fl = FleetRunner(flagship_params(tiny=True), 2, k_steps=2, "
+        "device=['cpu', 'cpu'])\n"
+        "assert fl.process(np.stack([iq, iq]))['audio'].shape == "
+        "(2, 2 * rx.geo.baseband_samples_per_step, 1)\n"
         + FOREIGN)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]", proc.stdout
