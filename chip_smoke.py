@@ -25,10 +25,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 4. main     the flagship receive step (96 kHz IQ, 65,536 samples per
             step, fft1 2048 with the kernel) through Receiver for 8 steps
             of a weak keyed CW tone, Gaussian noise, impulse noise and a
-            strong carrier; the kernel's launch count must rise by one per
-            step; the same input through a Receiver on torch.fft
-            ("xla") must agree within the stated bars.
-5. timing   step time and complex Msamples/s for both receivers.
+            strong carrier; one kernel launch per step (per replay of the
+            Receiver's graph); the same input through a Receiver on
+            torch.fft ("xla") must agree within the stated bars.
+5. timing   eager step time and complex Msamples/s for both receivers.
 6. eme      the EME configuration (48 kHz two-channel IQ, WCW preset:
             adaptive polarization, coherent CW detection, AFC with drift
             tracking; fft1 4096 with the kernel at (64, 4096, 2)) through
@@ -43,8 +43,8 @@ Phases, in order; any failure raises and the script exits non-zero:
             the stated bars.  A direct make_rx_step call with per-frame
             (bins, frac, slope) on the card makes no host synchronisation.
 7. eme timing  step time with the Receiver (the AFC's one device-to-host
-            read of fft2_power per step) and with the bare step on fixed
-            per-frame tuning, in turns.
+            read of fft2_power per step) and with its bare step (the
+            graph's replay on fixed per-frame tuning, no read), in turns.
 
 8. multi    the flagship configuration with spur cancellation, squelch
             and expander through MultiReceiver with 24 sub-receivers (the
@@ -168,6 +168,33 @@ Phases, in order; any failure raises and the script exits non-zero:
             ms and kernels per step at d = 1, 2, 4, 8 in turns, and the
             parity report's five configurations at full width (all pass).
 
+21. graphed  Receiver, MultiReceiver and the sharded classes on one card
+            replaying their step from CUDA graphs (their default on a
+            card), held against the same classes with graphed=False, every
+            RxOutputs field bit for bit: the flagship over phase 4's 8
+            steps (one kernel launch per replay, 8 in all); the EME
+            configuration over phase 6's 12 steps through the AFC's lock
+            (the AFC trajectory equal, the one-bin and the coherent
+            structure's graphs each replayed); MultiReceiver K = 24 over
+            phase 8's 10 steps with its spur manager (slots equal); phase
+            11's EME checkpoint saved and resumed by graphed receivers;
+            ShardedReceiver over ["cuda:0"] * 4 on the sharded test's
+            coherent-AFC configuration (16,384 baseband samples a step),
+            ShardedBatchRunner(k_steps=4) against the streamed receiver and
+            ShardedMultiReceiver K = 3.  Then, every receiver captured
+            first and after a profiler pass and an eager loop (the warm-up
+            that ends in the fast replay regime, ``--regimes``), ms per
+            step graphed and eager in turns for the flagship, the EME
+            configuration (and its graph alone, without the AFC's read),
+            MultiReceiver at K = 1 and K = 24; capture seconds and graph
+            pool bytes per structure; host reads per step.
+
+Every phase makes its receivers as a user would, so on the card they
+replay graphs; the phases count the kernel's launches from the replays
+(the kernel calls recorded in each graph times its replays, through
+``recorded_fft1``), and those that time, profile or patch the eager step
+(5, 8's timing, 20's timing, ``--stages``) pass graphed=False.
+
 ``python3 chip_smoke.py --stages`` runs phases 1 and 2 and then, instead
 of the smoke run, a diagnostic: the synced wall time of every stage of
 the multi-receiver step at K = 24 and K = 1.  ``--regimes`` likewise
@@ -175,12 +202,13 @@ prints the graphed flagship step's time at points of one process's life
 (a fresh runner, after the profiler's first start, after another capture,
 after an eager loop).
 
-It prints a JSON line describing every kernel of the paths (launches
-summed over the flagship, EME, multi-receiver, real-input, batch,
-checkpoint, file, rounds, mxu, calibration, fleet, CW decode and phase
-20's single-device and fleet runs, each counted from zero; times
-at the flagship's shape, and per shape under "by_shape"), then, as the
-last line, {"ok": true, "device": {...}}.
+It prints the whole run's seconds, a JSON line describing every kernel
+of the paths (launches summed over the flagship, EME, multi-receiver,
+real-input, batch, checkpoint, file, rounds, mxu, calibration, fleet, CW
+decode, phase 20's single-device and fleet runs and phase 21's graphed
+receivers, each counted from zero; times at the flagship's shape, and
+per shape under "by_shape"), then, as the last line, {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -290,6 +318,10 @@ CW_TUNE_HZ = 12_000.0
 TX_BLOCKS = 32
 TX_TOL = 1e-5
 LOOPBACK = "127.0.0.1"
+# the receivers from CUDA graphs (phase 21): the sharded AFC configuration's
+# dial and steps, as tests/test_torch_sharded.py's "afc-coherent"
+AFC_SHARD_HZ = 10_000.0
+AFC_SHARD_STEPS = 7
 
 
 def max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -469,17 +501,39 @@ def make_input(geo, seed: int = 0, steps: int = STEPS, tones=(TUNE_HZ,),
     return (tone + carrier + noise + imp).astype(np.complex64)[:, None]
 
 
-def run_rx(p, iq: np.ndarray, device, calibration=None,
-           tune_hz: float = TUNE_HZ) -> list:
-    """A Receiver on ``device`` tuned to ``tune_hz`` over every step of
-    iq; the outputs after the device has finished."""
+def rx_launches(rx, wrapper_before: int) -> int:
+    """The fused fft1's launches by ``rx`` (a receiver made with
+    ``recorded=recorded_fft1``) since the wrapper's own count read
+    ``wrapper_before``: its graphs' replays times the kernel calls recorded
+    in them, plus the wrapper's eager calls.  The warm-up before a capture,
+    when the receiver is made, is not a step of the path."""
+    from linrad_tpu_torch.ops.fused_fft1 import fused_fft1
+    return rx.kernel_launches + fused_fft1.launches - wrapper_before
+
+
+def run_rx_counted(p, iq: np.ndarray, device, calibration=None,
+                   tune_hz: float = TUNE_HZ, graphed=None) -> tuple:
+    """A Receiver on ``device`` (graphed on a card unless ``graphed`` says
+    otherwise) tuned to ``tune_hz`` over every step of iq: (the outputs
+    after the device has finished, the fused fft1's launches in the run,
+    as ``rx_launches`` counts them)."""
+    from linrad_tpu_torch.ops.fused_fft1 import fused_fft1
     from linrad_tpu_torch.pipeline.receiver import Receiver
-    rx = Receiver(p, calibration, device=device)
+    rx = Receiver(p, calibration, device=device, graphed=graphed,
+                  recorded=recorded_fft1)
     rx.tune(tune_hz)
+    before = fused_fft1.launches
     outs = list(rx.run(iq))
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
-    return outs
+    return outs, rx_launches(rx, before)
+
+
+def run_rx(p, iq: np.ndarray, device, calibration=None,
+           tune_hz: float = TUNE_HZ, graphed=None) -> list:
+    """A Receiver on ``device`` tuned to ``tune_hz`` over every step of
+    iq; the outputs after the device has finished."""
+    return run_rx_counted(p, iq, device, calibration, tune_hz, graphed)[0]
 
 
 def phase_main() -> int:
@@ -489,10 +543,12 @@ def phase_main() -> int:
     geo = derive_geometry(flagship_params())
     iq = make_input(geo)
     fused_fft1.launches = 0
-    outs = run_rx(flagship_params(fft1_variant="pallas"), iq, "cuda")
-    launches = fused_fft1.launches
-    print(f"main path: {len(outs)} steps of {geo.samples_per_step} samples, "
-          f"fused_fft1 launches {launches}")
+    outs, launches = run_rx_counted(flagship_params(fft1_variant="pallas"),
+                                    iq, "cuda")
+    print(f"main path: {len(outs)} steps of {geo.samples_per_step} samples "
+          f"through the graphed Receiver, fused_fft1 launches {launches} "
+          f"(replays of the kernel recorded in the graph; the wrapper's own "
+          f"count, the capture's warm-up included, {fused_fft1.launches})")
     if launches != STEPS or len(outs) != STEPS:
         raise AssertionError(f"expected {STEPS} kernel launches (one per "
                              f"step), saw {launches}")
@@ -595,7 +651,9 @@ def phase_timing(dev: dict) -> None:
     blocks = [iq[i * geo.samples_per_step:(i + 1) * geo.samples_per_step]
               for i in range(STEPS)]
     for variant in ("pallas", "xla", "xla", "pallas"):
-        rx = Receiver(flagship_params(fft1_variant=variant), device="cuda")
+        # the eager step (phase 21 times the graphed one)
+        rx = Receiver(flagship_params(fft1_variant=variant), device="cuda",
+                      graphed=False)
         rx.tune(TUNE_HZ)
         dev_blocks = [torch.from_numpy(b).cuda() for b in blocks]
         for b in dev_blocks[:2]:
@@ -661,20 +719,22 @@ def make_eme_input(geo, steps: int, seed: int = 3) -> np.ndarray:
     return x.astype(np.complex64)
 
 
-def run_eme(p, iq: np.ndarray, device: str) -> tuple:
+def run_eme(p, iq: np.ndarray, device: str, graphed=None) -> tuple:
     """Receiver tuned to the dial over EME_STEPS steps of iq.  Returns
     (receiver, outputs, AFC trajectory: (status, freq_hz, tune bins) per
-    step)."""
+    step, the fused fft1's launches in the run)."""
+    from linrad_tpu_torch.ops.fused_fft1 import fused_fft1
     from linrad_tpu_torch.pipeline.receiver import Receiver
-    rx = Receiver(p, device=device)
+    rx = Receiver(p, device=device, graphed=graphed, recorded=recorded_fft1)
     rx.tune(EME_TUNE_HZ)
     s = rx.geo.samples_per_step
     outs, track = [], []
+    before = fused_fft1.launches
     for i in range(EME_STEPS):
         outs.append(rx.process_block(iq[i * s:(i + 1) * s]))
         track.append((rx.afc.status, rx.afc.freq_hz,
                       rx._tune_bin.cpu().numpy()))
-    return rx, outs, track
+    return rx, outs, track, rx_launches(rx, before)
 
 
 def phase_eme(device: str = "cuda", **overrides) -> tuple:
@@ -688,8 +748,7 @@ def phase_eme(device: str = "cuda", **overrides) -> tuple:
     geo = derive_geometry(p)
     iq = make_eme_input(geo, EME_STEPS + EME_TIME_STEPS)
     fused_fft1.launches = 0
-    rx, outs, track = run_eme(p, iq, device)
-    launches = fused_fft1.launches
+    rx, outs, track, launches = run_eme(p, iq, device)
     print(f"eme path: {len(outs)} steps of {geo.samples_per_step} samples "
           f"x {geo.channels} channels, fft1 {geo.fft1_size} "
           f"({geo.fft1_frames_per_step} frames), fused_fft1 launches "
@@ -754,7 +813,8 @@ def phase_eme(device: str = "cuda", **overrides) -> tuple:
         raise AssertionError("eme: the polarization weights miss the "
                              "injected polarization")
 
-    _, ref, ref_track = run_eme(eme_params("xla", **overrides), iq, device)
+    _, ref, ref_track, _ = run_eme(eme_params("xla", **overrides), iq,
+                                   device)
     bin_hz = geo.timf1_sampling_speed / geo.fftx_size
     for i, (a, b) in enumerate(zip(track, ref_track)):
         if (a[0] != b[0] or not np.array_equal(a[2], b[2])
@@ -792,18 +852,17 @@ def phase_eme(device: str = "cuda", **overrides) -> tuple:
     return launches, rx, iq
 
 
-def phase_eme_timing(dev: dict, rx, iq: np.ndarray) -> None:
+def phase_eme_timing(dev: dict, rx, iq: np.ndarray, what: str = "") -> dict:
     """EME step time in turns: through Receiver.process_block (the AFC's
-    fft2_power read to the host every step) and the bare step with the
-    AFC's last per-frame tuning held fixed (no host read)."""
-    from linrad_tpu_torch.pipeline.chain import make_rx_step
+    fft2_power read to the host every step) and the receiver's bare step
+    (``Receiver._advance``: the graph's replay, or the eager step, with the
+    AFC's last per-frame tuning held fixed; no host read, no copy of the
+    outputs).  Returns the ms per step of each turn by label."""
     s = rx.geo.samples_per_step
     blocks = [torch.from_numpy(iq[(EME_STEPS + i) * s:
                                   (EME_STEPS + i + 1) * s]).cuda()
               for i in range(EME_TIME_STEPS)]
-    step = make_rx_step(rx.geo, rx.params, rx.blanker_pulsewidth,
-                        fractional_tune=True)
-    tune = (rx._tune_bin, rx._tune_frac, rx._tune_slope)
+    mode = "graphed" if rx.graphed else "eager"
 
     def receiver():
         for b in blocks:
@@ -811,7 +870,7 @@ def phase_eme_timing(dev: dict, rx, iq: np.ndarray) -> None:
 
     def bare():
         for b in blocks:
-            rx.state, _ = step(rx.tables, rx.state, b, *tune)
+            rx._advance(b)
 
     reads0 = rx.control.host_reads
     times = {"receiver": [], "bare step": []}
@@ -828,16 +887,17 @@ def phase_eme_timing(dev: dict, rx, iq: np.ndarray) -> None:
         torch.cuda.synchronize()
         ms = start.elapsed_time(end) / len(blocks)
         times[label].append(ms)
-        print(f"eme timing {label}: {ms:.3f} ms/step (CUDA events), host "
-              f"{1e3 * host_s / len(blocks):.3f} ms/step, "
+        print(f"{what}eme timing {mode} {label}: {ms:.3f} ms/step (CUDA "
+              f"events), host {1e3 * host_s / len(blocks):.3f} ms/step, "
               f"{s / ms / 1e3:.3f} complex Msamples/s per channel "
               f"[{dev['smi']}]")
     reads = (rx.control.host_reads - reads0) / (2 * len(blocks))
     cost = (sum(times["receiver"]) - sum(times["bare step"])) / 2
-    print(f"eme timing: {reads:.0f} fft2_power host read per Receiver step; "
-          f"Receiver minus bare step {cost:.3f} ms/step")
+    print(f"{what}eme timing {mode}: {reads:.0f} fft2_power host read per "
+          f"Receiver step; Receiver minus bare step {cost:.3f} ms/step")
     if reads != 1:
         raise AssertionError("expected one host read per Receiver step")
+    return times
 
 
 def audio_peak_hz(audio: torch.Tensor, fs: float) -> float:
@@ -893,16 +953,19 @@ def dial_protecting_manager(geo, dials):
 
 
 def run_multi(p, k_sub: int, dials, iq: np.ndarray, steps: int, device,
-              scan_interval: int | None = None):
+              scan_interval: int | None = None, graphed=None):
     """MultiReceiver over ``steps`` steps with the spur manager scanning
     beside it.  ``device`` None takes the receiver's default;
     ``scan_interval`` overrides the control's (a rehearsal at a tiny step
     size, where the interval is far longer than the run).  Returns
-    (receiver, control, outputs, spur slot bins after each step)."""
+    (receiver, control, outputs, spur slot bins after each step, the fused
+    fft1's launches in the run)."""
+    from linrad_tpu_torch.ops.fused_fft1 import fused_fft1
     from linrad_tpu_torch.pipeline.control import WeakSignalControl
     from linrad_tpu_torch.pipeline.receiver import MultiReceiver
-    rx = (MultiReceiver(p, k_sub) if device is None
-          else MultiReceiver(p, k_sub, device=device))
+    kw = {"graphed": graphed, "recorded": recorded_fft1}
+    rx = (MultiReceiver(p, k_sub, **kw) if device is None
+          else MultiReceiver(p, k_sub, device=device, **kw))
     for k, f in enumerate(dials):
         rx.tune_subch(k, f)
     ctl = WeakSignalControl(rx.geo, p, rx.device)
@@ -912,13 +975,14 @@ def run_multi(p, k_sub: int, dials, iq: np.ndarray, steps: int, device,
         ctl.spur_scan_interval = scan_interval
     s = rx.geo.samples_per_step
     outs, slots = [], []
+    before = fused_fft1.launches
     for i in range(steps):
         out = rx.process_block(iq[i * s:(i + 1) * s])
         _bins, rx.state = ctl.update(out, rx._tune_bins, rx.state)
         outs.append(out)
         slots.append(None if rx.state.spur is None
                      else rx.state.spur.bins.cpu().numpy().copy())
-    return rx, ctl, outs, slots
+    return rx, ctl, outs, slots, rx_launches(rx, before)
 
 
 def count_device_ops(fn) -> tuple:
@@ -957,9 +1021,8 @@ def phase_multi(dev: dict, device=None, tiny: bool = False,
                     tone_amplitude=MULTI_TONE_AMPLITUDE,
                     spur=(MULTI_SPUR_HZ, MULTI_SPUR_AMPLITUDE))
     fused_fft1.launches = 0
-    rx, ctl, outs, slots = run_multi(p, k_sub, dials, iq, steps, device,
-                                     scan_interval)
-    launches = fused_fft1.launches
+    rx, ctl, outs, slots, launches = run_multi(p, k_sub, dials, iq, steps,
+                                               device, scan_interval)
     interval = ctl.spur_scan_interval
     print(f"multi path: MultiReceiver K={k_sub} on {rx.device}, {steps} steps "
           f"of {geo.samples_per_step} samples, fused_fft1 launches "
@@ -991,9 +1054,9 @@ def phase_multi(dev: dict, device=None, tiny: bool = False,
         if sum(abs(h - b) <= 1 for h in held) != 1 and not tiny:
             raise AssertionError(f"multi: no single spur slot on bin {b}: "
                                  f"{held}")
-    _, _, plain, _ = run_multi(multi_params("pallas", tiny, spur=False),
-                               k_sub, dials, iq, steps, device,
-                               scan_interval)
+    _, _, plain, _, _ = run_multi(multi_params("pallas", tiny, spur=False),
+                                  k_sub, dials, iq, steps, device,
+                                  scan_interval)
     on = outs[-1].fft2_power[:, 0].double()
     off = plain[-1].fft2_power[:, 0].double()
     med = off.median().item()
@@ -1048,8 +1111,9 @@ def phase_multi(dev: dict, device=None, tiny: bool = False,
                                  f"single Receiver")
 
     # the kernel against torch.fft
-    _, _, ref, ref_slots = run_multi(multi_params("xla", tiny), k_sub, dials,
-                                     iq, steps, device, scan_interval)
+    _, _, ref, ref_slots, _ = run_multi(multi_params("xla", tiny), k_sub,
+                                        dials, iq, steps, device,
+                                        scan_interval)
     for i, (a, b) in enumerate(zip(slots, ref_slots)):
         if not np.array_equal(a, b):
             raise AssertionError(f"multi step {i}: spur slot bins differ "
@@ -1068,7 +1132,9 @@ def phase_multi_timing(dev: dict, p, dials, iq: np.ndarray) -> None:
     from linrad_tpu_torch.pipeline.receiver import MultiReceiver
     times, ops = {}, {}
     for k_sub in (1, MULTI_K, MULTI_K, 1):
-        rx = MultiReceiver(p, k_sub)
+        # the eager step, whose aten operations are counted (phase 21
+        # times the graphed one)
+        rx = MultiReceiver(p, k_sub, graphed=False)
         for k in range(k_sub):
             rx.tune_subch(k, dials[k])
         s = rx.geo.samples_per_step
@@ -1134,8 +1200,9 @@ def phase_real(dev: dict, device="cuda", tiny: bool = False) -> int:
           f"({geo.fft1_frames_per_step} frames of {2 * geo.fft1_size} real "
           f"samples), fft2 {geo.fft2_size}, mixer mode 2, baseband "
           f"{geo.baseband_sampling_speed:.0f} Hz resampled to {fs_out:.0f} Hz")
+    rx = Receiver(p, device=device, audio_out_rate=fs_out,
+                  recorded=recorded_fft1)
     fused_fft1.launches = 0
-    rx = Receiver(p, device=device, audio_out_rate=fs_out)
     dial = round(TUNE_HZ / geo.timf1_sampling_speed * geo.fftx_size) \
         * geo.timf1_sampling_speed / geo.fftx_size
     rx.tune(dial)
@@ -1153,7 +1220,7 @@ def phase_real(dev: dict, device="cuda", tiny: bool = False) -> int:
     block_out = rx._resampler.block_out
     print(f"real: {len(outs)} steps of {rows} real samples, FIR of {fir} "
           f"taps, audio {tuple(outs[-1].audio.shape)} per step (block_out "
-          f"{block_out}), fused_fft1 launches {fused_fft1.launches}")
+          f"{block_out}), fused_fft1 launches {rx_launches(rx, 0)}")
     bb = geo.baseband_samples_per_step
     shapes = {"audio": (block_out, 1), "baseb": (bb, 1),
               "fft1_power": (geo.fft1_size, 1), "agc_gain": (bb, 1),
@@ -1181,7 +1248,7 @@ def phase_real(dev: dict, device="cuda", tiny: bool = False) -> int:
         ms = start.elapsed_time(end) / len(blocks)
         print(f"real timing: {ms:.3f} ms/step (CUDA events), "
               f"{rows / ms / 1e3:.3f} real Msamples/s [{dev['smi']}]")
-    real_launches = fused_fft1.launches
+    real_launches = rx_launches(rx, 0)
 
     # I/Q image correction on IQ input: the unfused path as well
     geo_iq = derive_geometry(base)
@@ -1191,14 +1258,15 @@ def phase_real(dev: dict, device="cuda", tiny: bool = False) -> int:
     s = geo_iq.samples_per_step
     powers = []
     for cal in ({"iq_corr": corr.astype(np.complex64)}, None):
-        rx = Receiver(base, device=device, calibration=cal)
+        rx = Receiver(base, device=device, calibration=cal,
+                      recorded=recorded_fft1)
         rx.tune(TUNE_HZ)
         before = fused_fft1.launches
         outs = [rx.process_block(iq[i * s:(i + 1) * s]) for i in range(3)]
         check_outputs(outs, {"audio": (geo_iq.baseband_samples_per_step, 1),
                              "fft1_power": (geo_iq.fft1_size, 1)})
         if cal is not None:
-            corr_launches = fused_fft1.launches - before
+            corr_launches = rx_launches(rx, before)
         powers.append(outs[-1].fft1_power)
     image_bin = (-int(round(CARRIER_HZ / geo_iq.timf1_sampling_speed
                             * geo_iq.fft1_size))) % geo_iq.fft1_size
@@ -1533,27 +1601,39 @@ def equal_outputs(a, b, label: str) -> None:
 def phase_checkpoint(dev: dict, device="cuda", tiny: bool = False,
                      **eme_overrides) -> int:
     """Save and resume, on the flagship and across the AFC's lock on the
-    EME configuration.  Returns the kernel's launch count."""
+    EME configuration.  Returns the kernel's launch count: the launches of
+    the phase's receivers, as ``rx_launches`` counts them."""
     from linrad_tpu_torch import derive_geometry, flagship_params
     from linrad_tpu_torch.ops.fused_fft1 import fused_fft1
     from linrad_tpu_torch.pipeline.checkpoint import (load_receiver,
                                                       save_receiver)
     from linrad_tpu_torch.pipeline.receiver import Receiver
     fused_fft1.launches = 0
+    made = []
+
+    def receiver(params):
+        made.append(Receiver(params, device=device, recorded=recorded_fft1))
+        return made[-1]
+
+    def load(path):
+        made.append(load_receiver(path, device=device,
+                                  recorded=recorded_fft1))
+        return made[-1]
+
     with tempfile.TemporaryDirectory() as tmp:
         p = flagship_params(tiny=tiny, fft1_variant="pallas")
-        rx = Receiver(p, device=device)
+        rx = receiver(p)
         rx.tune(TUNE_HZ)
         s = rx.geo.samples_per_step
         iq = make_input(rx.geo, seed=4, steps=8)
         straight = list(rx.run(iq))
-        rx1 = Receiver(p, device=device)
+        rx1 = receiver(p)
         rx1.tune(TUNE_HZ)
         for _ in rx1.run(iq[:4 * s]):
             pass
         path = os.path.join(tmp, "flagship.npz")
         save_receiver(path, rx1)
-        rx2 = load_receiver(path, device=device)
+        rx2 = load(path)
         for i, out in enumerate(rx2.run(iq[4 * s:])):
             equal_outputs(out, straight[4 + i], f"checkpoint step {5 + i}")
         print(f"checkpoint: flagship, saved after 4 steps "
@@ -1563,7 +1643,7 @@ def phase_checkpoint(dev: dict, device="cuda", tiny: bool = False,
 
         pe = eme_params("pallas", **eme_overrides)
         iq = make_eme_input(derive_geometry(pe), EME_STEPS)
-        rx = Receiver(pe, device=device)
+        rx = receiver(pe)
         rx.tune(EME_TUNE_HZ)
         s = rx.geo.samples_per_step
         straight, track, saved_at, rx2 = [], [], None, None
@@ -1586,7 +1666,7 @@ def phase_checkpoint(dev: dict, device="cuda", tiny: bool = False,
             elif rx.afc.status in (2, 3) and i < EME_STEPS - 3:
                 path = os.path.join(tmp, "eme.npz")
                 save_receiver(path, rx)
-                rx2 = load_receiver(path, device=device)
+                rx2 = load(path)
                 saved_at = i
         if rx2 is None or len(resumed) < 3 or 3 not in track:
             raise AssertionError(f"checkpoint: the AFC did not lock in time "
@@ -1596,7 +1676,9 @@ def phase_checkpoint(dev: dict, device="cuda", tiny: bool = False,
               f"steps {saved_at + 1}-{EME_STEPS - 1} (status {resumed}): "
               f"outputs, AFC status and frequency, frame bins, tune_frac "
               f"and tune_slope equal in every step")
-    return fused_fft1.launches
+    # every receiver here is graphed on the card: its replays are the
+    # launches (the wrapper's own count holds the captures' warm-ups)
+    return sum(r.kernel_launches for r in made)
 
 
 def phase_file(dev: dict, device="cuda", tiny: bool = False) -> int:
@@ -1624,7 +1706,7 @@ def phase_file(dev: dict, device="cuda", tiny: bool = False) -> int:
         write_wav(path, iq[:, None], geo.rx_ad_speed, bits=16,
                   rcvr=RcvrChunk(center_frequency_hz=14_100_000))
         size = os.path.getsize(path)
-        rx = Receiver(p, device=device)
+        rx = Receiver(p, device=device, recorded=recorded_fft1)
         rx.tune(TUNE_HZ)
         fused_fft1.launches = 0
         t0 = time.perf_counter()
@@ -1632,7 +1714,7 @@ def phase_file(dev: dict, device="cuda", tiny: bool = False) -> int:
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = fused_fft1.launches
+        launches = rx_launches(rx, 0)
     audio = torch.cat([o.audio for o in outs])
     print(f"file: {len(outs)} steps replayed from a {size}-byte 16-bit IQ "
           f"WAV in {seconds:.3f} s, fused_fft1 launches {launches}, "
@@ -1768,21 +1850,19 @@ def phase_rounds(dev: dict, device="cuda", tiny: bool = False) -> int:
     p = dataclasses.replace(base, blanker_rounds=ROUNDS)
     geo = derive_geometry(p)
     iq = make_input(geo)
-    fused_fft1.launches = 0
-    outs = run_rx(p, iq, device)
-    rx_launches = fused_fft1.launches
+    outs, receiver_launches = run_rx_counted(p, iq, device)
     shapes = flagship_shapes(geo)
     check_outputs(outs, shapes)
     seq = run_rx(base, iq, device)
     fits = [int(o.blanker_fitted) for o in outs]
     seq_fits = [int(o.blanker_fitted) for o in seq]
     print(f"rounds: blanker_rounds={ROUNDS}, Receiver {len(outs)} steps, "
-          f"fused_fft1 launches {rx_launches}; fits per step {fits} "
+          f"fused_fft1 launches {receiver_launches}; fits per step {fits} "
           f"(sequential blanker, up to {p.max_pulses_per_block}: "
           f"{seq_fits}); cleared "
           f"{[int(o.blanker_cleared) for o in outs]} "
           f"(sequential {[int(o.blanker_cleared) for o in seq]})")
-    if on_card and rx_launches != STEPS:
+    if on_card and receiver_launches != STEPS:
         raise AssertionError(f"rounds: expected {STEPS} kernel launches")
     # (at the tiny size phase 4's impulses stay under the fit threshold)
     if max(fits) == 0 and not tiny:
@@ -1814,7 +1894,7 @@ def phase_rounds(dev: dict, device="cuda", tiny: bool = False) -> int:
           "loop of the same step")
     if on_card:
         phase_rounds_timing(dev, base, p, iq16)
-    return rx_launches + batch_launches
+    return receiver_launches + batch_launches
 
 
 def phase_rounds_timing(dev: dict, base, p, iq: np.ndarray) -> None:
@@ -1862,9 +1942,7 @@ def phase_mxu(dev: dict, device="cuda", tiny: bool = False) -> int:
     xla = run_rx(dataclasses.replace(base, fft1_variant="xla"), iq, device)
     mxu_p = dataclasses.replace(base, fft1_variant="mxu")
     bf_p = dataclasses.replace(base, fft1_variant="mxu_bf16")
-    fused_fft1.launches = 0
-    mxu = run_rx(mxu_p, iq, device)
-    launches = fused_fft1.launches
+    mxu, launches = run_rx_counted(mxu_p, iq, device)
     check_outputs(mxu, shapes)
     print(f"mxu: fft1 {geo.fft1_size} as the four-step matmul DFT, "
           f"{len(mxu)} steps, fused_fft1 launches {launches}")
@@ -1886,9 +1964,8 @@ def phase_mxu(dev: dict, device="cuda", tiny: bool = False) -> int:
               f"by the caller, every output field of the {len(tf32)} steps "
               f"bit-equal to the run with it off; the setting restored "
               f"(now {torch.backends.cuda.matmul.allow_tf32})")
-    fused_fft1.launches = 0
-    bf = run_rx(bf_p, iq, device)
-    launches += fused_fft1.launches
+    bf, bf_launches = run_rx_counted(bf_p, iq, device)
+    launches += bf_launches
     check_outputs(bf, shapes)
     for k in shapes:
         if k in ("blanker_fitted", "blanker_cleared"):
@@ -1932,9 +2009,7 @@ def phase_calibration(dev: dict, device="cuda", tiny: bool = False) -> int:
     geo = derive_geometry(base)
     cal = {"filtercorr": tilted_filtercorr(geo)}
     iq = make_input(geo)
-    fused_fft1.launches = 0
-    outs = run_rx(base, iq, device, cal)
-    launches = fused_fft1.launches
+    outs, launches = run_rx_counted(base, iq, device, cal)
     shapes = flagship_shapes(geo)
     check_outputs(outs, shapes)
     fc = np.abs(cal["filtercorr"][:, 0])
@@ -2086,17 +2161,28 @@ def shard_dial(geo) -> float:
     return round(TUNE_HZ / fs * n) * fs / n
 
 
-def run_sharded(p, iq: np.ndarray, devices, tune_hz: float) -> list:
-    """A ShardedReceiver over ``devices`` (a list, or a shard group) tuned
-    to ``tune_hz`` over every step of iq; the outputs after the devices
-    have finished."""
+def run_sharded_counted(p, iq: np.ndarray, devices, tune_hz: float,
+                        graphed=None) -> tuple:
+    """A ShardedReceiver over ``devices`` (a list, or a shard group;
+    graphed where every shard is on one card, unless ``graphed`` says
+    otherwise) tuned to ``tune_hz`` over every step of iq: (the outputs
+    after the devices have finished, the fused fft1's launches in the run,
+    as ``rx_launches`` counts them)."""
+    from linrad_tpu_torch.ops.fused_fft1 import fused_fft1
     from linrad_tpu_torch.parallel import ShardedReceiver
-    rx = ShardedReceiver(p, devices)
+    rx = ShardedReceiver(p, devices, graphed=graphed, recorded=recorded_fft1)
     rx.tune(tune_hz)
+    before = fused_fft1.launches
     outs = list(rx.run(iq))
     if torch.cuda.is_available():
         torch.cuda.synchronize()
-    return outs
+    return outs, rx_launches(rx, before)
+
+
+def run_sharded(p, iq: np.ndarray, devices, tune_hz: float,
+                graphed=None) -> list:
+    """The outputs of ``run_sharded_counted``."""
+    return run_sharded_counted(p, iq, devices, tune_hz, graphed)[0]
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -2128,16 +2214,17 @@ def phase_sharded(dev: dict, device="cuda", tiny: bool = False) -> int:
     shapes = flagship_shapes(geo)
     fused_fft1.launches = 0
     t0 = time.perf_counter()
-    outs = run_sharded(p, iq, card, dial)
+    outs, shard_launches = run_sharded_counted(p, iq, card, dial)
     seconds = time.perf_counter() - t0
     print(f"sharded: ShardedReceiver over {card}, {len(outs)} steps of "
           f"{geo.samples_per_step} samples ({geo.samples_per_step // SHARD_D}"
           f" a shard, {geo.fft1_frames_per_step // SHARD_D} fft1 frames), "
-          f"{seconds:.2f} s; fused_fft1 launches {fused_fft1.launches} (the "
+          f"{seconds:.2f} s with its captures; fused_fft1 launches "
+          f"{shard_launches}, wrapper calls {fused_fft1.launches} (the "
           f"sharded step takes no fused kernel, as the JAX package's); fits "
           f"{[int(o.blanker_fitted) for o in outs]}, cleared "
           f"{[int(o.blanker_cleared) for o in outs]}")
-    if fused_fft1.launches:
+    if fused_fft1.launches or shard_launches:
         raise AssertionError("sharded: the sharded step launched the fused "
                              "fft1 kernel")
     check_outputs(outs, shapes)
@@ -2161,9 +2248,7 @@ def phase_sharded(dev: dict, device="cuda", tiny: bool = False) -> int:
           f"{[int(o.blanker_cleared) for o in single]} (not held)")
     q = dataclasses.replace(p, stupid_bln_limit=1e9)
     outs_q = run_sharded(q, iq, card, dial)
-    fused_fft1.launches = 0
-    single = run_rx(q, iq, device, tune_hz=dial)
-    launches = fused_fft1.launches
+    single, launches = run_rx_counted(q, iq, device, tune_hz=dial)
     fit_s = sum(int(o.blanker_fitted) for o in outs_q)
     fit_1 = sum(int(o.blanker_fitted) for o in single)
     rel = rel_err(torch.cat([o.baseb for o in outs_q]),
@@ -2325,8 +2410,9 @@ def phase_sharded_timing(dev: dict, p, iq: np.ndarray) -> None:
     kernels: dict = {}
     times: dict = {}
     for d in SHARD_TIME_D + SHARD_TIME_D[::-1]:
+        # the eager step (phase 21 holds the graphed one)
         rx = ShardedReceiver(dataclasses.replace(p, shards=d),
-                             ["cuda:0"] * d)
+                             ["cuda:0"] * d, graphed=False)
         rx.tune(shard_dial(rx.geo))
         for b in blocks[:2]:
             rx.process_block(b)
@@ -2491,7 +2577,7 @@ def phase_weak(dev: dict, device="cuda") -> int:
     iq = cw_input(geo)
     s = geo.samples_per_step
     steps = len(iq) // s
-    rx = Receiver(p, device=device)
+    rx = Receiver(p, device=device, recorded=recorded_fft1)
     rx.tune(CW_TUNE_HZ)
     fields = {taps.TAP_BASEB: "audio", taps.TAP_BASEBRAW: "baseb"}
     nets = {f: taps.TapReceiver(f, timeout=5.0, bind=(LOOPBACK, 0))
@@ -2509,7 +2595,7 @@ def phase_weak(dev: dict, device="cuda") -> int:
         for i in range(steps):
             outs.append(rx.process_block(iq[i * s:(i + 1) * s]))
             drain_taps(nets, pub, got)
-        launches = fused_fft1.launches
+        launches = rx_launches(rx, 0)
         rx_s = time.perf_counter() - t0
 
         def fetch(path):
@@ -2599,6 +2685,372 @@ def phase_weak_tx(dev: dict, device="cuda") -> None:
                              "CPU run")
 
 
+# ---- the receivers from CUDA graphs: phase 21 ---------------------------
+
+def afc_shard_params(tiny: bool = False):
+    """tests/test_torch_sharded.py's "afc-coherent" configuration over
+    SHARD_D shards (96 kHz IQ, fft1 8192, 262,144 samples and 16,384
+    baseband samples per step, the coherent AFC); ``tiny`` cuts it to fft1
+    256 for a rehearsal on the CPU."""
+    from linrad_tpu_torch import RxParams
+    cut = (dict(fft1_n_override=8, target_fft1_frames_per_step=8, fft3_n=6)
+           if tiny else {})
+    return RxParams(first_fft_bandwidth=30.0, mix1_bandwidth_reduction_n=4,
+                    agc_enable=False, afc_enable=True, filter_low_hz=-150.0,
+                    filter_high_hz=150.0, shards=SHARD_D, **cut)
+
+
+def drifting_input(geo, steps: int, seed: int = 0) -> np.ndarray:
+    """tests/test_torch_sharded.py's AFC input: a carrier at
+    AFC_SHARD_HZ drifting 2 Hz/s, complex Gaussian noise."""
+    fs = geo.rx_ad_speed
+    n = geo.samples_per_step * steps
+    t = np.arange(n) / fs
+    rng = np.random.default_rng(seed)
+    return (0.3 * np.exp(2j * np.pi * (AFC_SHARD_HZ * t + t * t))
+            + 0.05 * (rng.normal(size=n) + 1j * rng.normal(size=n))
+            ).astype(np.complex64)
+
+
+def same_outputs(outs: list, ref: list, label: str) -> None:
+    """Every RxOutputs field of every step equal bit for bit."""
+    if len(outs) != len(ref):
+        raise AssertionError(f"{label}: {len(outs)} steps against "
+                             f"{len(ref)}")
+    for i, (a, b) in enumerate(zip(outs, ref)):
+        equal_outputs(a, b, f"{label} step {i}")
+
+
+def graph_report(rx, label: str, dev: dict) -> None:
+    """Capture seconds and graph pool bytes of each of a receiver's
+    graphs, and its replays."""
+    on_card = rx.device.type == "cuda"
+    print(f"graphed {label}: " + "; ".join(
+        f"structure {name}: {g.replays} replays, {g.kernels} fused_fft1 "
+        f"node(s), capture {g.capture_seconds:.3f} s, graph pool "
+        f"{graph_pool_bytes(g.graph) if on_card else 0} bytes"
+        for name, g in rx.graphs.items()) + f" [{dev['smi']}]")
+
+
+def phase_graphed(dev: dict, device="cuda", tiny: bool = False,
+                  k_sub: int = MULTI_K, scan_interval: int | None = None,
+                  **eme_overrides) -> int:
+    """Phase 21: Receiver, MultiReceiver and the one-card sharded classes
+    replaying their step from CUDA graphs, held against the same classes
+    with graphed=False, every RxOutputs field bit for bit.  Returns the
+    kernel's launches over the graphed runs, as the receivers count them.
+    ``device="cpu"`` with ``tiny=True`` (and the EME cut in
+    ``eme_overrides``) rehearses the control flow: graphed=True there runs
+    the graphs' bodies eagerly."""
+    from linrad_tpu_torch import derive_geometry, flagship_params
+    from linrad_tpu_torch.ops.fused_fft1 import fused_fft1
+    from linrad_tpu_torch.parallel import (ShardedBatchRunner,
+                                           ShardedMultiReceiver,
+                                           ShardedReceiver)
+    from linrad_tpu_torch.pipeline.checkpoint import (load_receiver,
+                                                      save_receiver)
+    from linrad_tpu_torch.pipeline.receiver import Receiver
+    t0 = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    graphed = None if on_card else True
+    launches = 0
+
+    # (a) the flagship through the kernel, phase 4's input
+    p = flagship_params(tiny=tiny, fft1_variant="pallas")
+    geo = derive_geometry(p)
+    iq = make_input(geo)
+    flag = Receiver(p, device=device, graphed=graphed, recorded=recorded_fft1)
+    flag.tune(TUNE_HZ)
+    wrapper = fused_fft1.launches
+    outs = list(flag.run(iq))
+    wrapper = fused_fft1.launches - wrapper
+    same_outputs(outs, run_rx(p, iq, device, graphed=False),
+                 "graphed flagship")
+    print(f"graphed flagship: {len(outs)} steps, every RxOutputs field "
+          f"bit-equal to graphed=False; {flag.kernels_per_replay} fused_fft1 "
+          f"node per replay, launches {flag.kernel_launches} (wrapper calls "
+          f"{wrapper})")
+    graph_report(flag, "flagship", dev)
+    if not flag.graphed or (on_card and (
+            flag.kernels_per_replay != 1 or flag.kernel_launches != STEPS
+            or wrapper != 0)):
+        raise AssertionError("graphed flagship: expected one kernel launch "
+                             "per step, all from replays")
+    launches += flag.kernel_launches
+
+    # (b) the EME configuration through the AFC's lock, phase 6's input
+    pe = eme_params("pallas", **eme_overrides)
+    ge = derive_geometry(pe)
+    iqe = make_eme_input(ge, EME_STEPS + EME_TIME_STEPS)
+    eme, g_outs, g_track, eme_launches = run_eme(pe, iqe, device, graphed)
+    eme_eager, e_outs, e_track, _ = run_eme(pe, iqe, device, graphed=False)
+    for i, (a, b) in enumerate(zip(g_track, e_track)):
+        if a[0] != b[0] or a[1] != b[1] or not np.array_equal(a[2], b[2]):
+            raise AssertionError(f"graphed eme step {i}: AFC trajectory "
+                                 f"{a} != {b}")
+    same_outputs(g_outs, e_outs, "graphed eme")
+    replays = {name: g.replays for name, g in eme.graphs.items()}
+    print(f"graphed eme: {EME_STEPS} steps, AFC status per step "
+          f"{[t[0] for t in g_track]} and freq_hz equal to graphed=False's "
+          f"in every step, every RxOutputs field bit-equal; replays per "
+          f"structure {replays}; launches {eme_launches}; host reads "
+          f"{eme.control.host_reads / EME_STEPS:.1f} per step")
+    graph_report(eme, "eme", dev)
+    if min(replays.values()) < 1 or set(replays) != {"bin", "coherent"}:
+        raise AssertionError("graphed eme: a structure's graph never ran")
+    if on_card and (eme.kernels_per_replay != 1
+                    or eme_launches != EME_STEPS):
+        raise AssertionError("graphed eme: expected one kernel launch per "
+                             "step")
+    launches += eme_launches
+
+    # (c) checkpoint and resume through the graphed Receiver: saved as
+    # phase 11 saves, resumed against the eager run of (b)
+    s = ge.samples_per_step
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "eme.npz")
+        first = Receiver(pe, device=device, graphed=graphed,
+                         recorded=recorded_fft1)
+        first.tune(EME_TUNE_HZ)
+        saved_at = None
+        for i in range(EME_STEPS - 3):
+            first.process_block(iqe[i * s:(i + 1) * s])
+            if first.afc.status in (2, 3):
+                save_receiver(path, first)
+                saved_at = i
+                break
+        if saved_at is None:
+            raise AssertionError("graphed checkpoint: the AFC did not lock "
+                                 "in time to resume")
+        resumed = load_receiver(path, device=device, graphed=graphed,
+                                recorded=recorded_fft1)
+        for i in range(saved_at + 1, EME_STEPS):
+            out = resumed.process_block(iqe[i * s:(i + 1) * s])
+            equal_outputs(out, e_outs[i], f"graphed resume step {i}")
+            if (resumed.afc.status, resumed.afc.freq_hz) != e_track[i][:2]:
+                raise AssertionError(f"graphed resume step {i}: the AFC "
+                                     f"went another way")
+    print(f"graphed checkpoint: eme saved by a graphed Receiver after step "
+          f"{saved_at} (status {g_track[saved_at][0]}), loaded into a "
+          f"graphed Receiver: steps {saved_at + 1}-{EME_STEPS - 1} bit-equal "
+          f"to the graphed=False run, AFC status and frequency equal")
+    launches += first.kernel_launches + resumed.kernel_launches
+
+    # (d) the 24 sub-receivers with phase 8's spur manager, phase 8's input
+    pm = multi_params("pallas", tiny)
+    gm = derive_geometry(pm)
+    dials = multi_dials(gm, k_sub)
+    iqm = make_input(gm, seed=5, steps=MULTI_STEPS + MULTI_TIME_STEPS,
+                     tones=dials, tone_amplitude=MULTI_TONE_AMPLITUDE,
+                     spur=(MULTI_SPUR_HZ, MULTI_SPUR_AMPLITUDE))
+    multi, ctl, m_outs, m_slots, multi_launches = run_multi(
+        pm, k_sub, dials, iqm, MULTI_STEPS, device, scan_interval, graphed)
+    _, _, m_ref, m_ref_slots, _ = run_multi(pm, k_sub, dials, iqm,
+                                            MULTI_STEPS, device,
+                                            scan_interval, graphed=False)
+    for i, (a, b) in enumerate(zip(m_slots, m_ref_slots)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"graphed multi step {i}: spur slots {a} "
+                                 f"!= {b}")
+    same_outputs(m_outs, m_ref, "graphed multi")
+    print(f"graphed multi: MultiReceiver K={k_sub}, {MULTI_STEPS} steps with "
+          f"the dial-protecting spur manager every {ctl.spur_scan_interval} "
+          f"step(s): spur slots equal and every RxOutputs field bit-equal "
+          f"to graphed=False; launches {multi_launches}; host reads "
+          f"{ctl.host_reads / MULTI_STEPS:.1f} per step")
+    graph_report(multi, f"multi K={k_sub}", dev)
+    if on_card and (multi.kernels_per_replay != 1
+                    or multi_launches != MULTI_STEPS):
+        raise AssertionError("graphed multi: expected one kernel launch per "
+                             "step")
+    launches += multi_launches
+
+    # (e) the sharded classes with every shard on the card
+    card = [device] * SHARD_D
+    pa = afc_shard_params(tiny)
+    ga = derive_geometry(pa)
+    iqa = drifting_input(ga, AFC_SHARD_STEPS)
+    runs = {}
+    for g in (graphed, False):
+        rx = ShardedReceiver(pa, card, graphed=g)
+        rx.tune(AFC_SHARD_HZ)
+        outs, track = [], []
+        for out in rx.run(iqa):
+            outs.append(out)
+            track.append((rx.control.afc.status, rx._tune_bin.tolist()))
+        runs[g] = (rx, outs, track)
+    sh, sh_outs, sh_track = runs[graphed]
+    if sh_track != runs[False][2]:
+        raise AssertionError(f"graphed sharded: AFC trajectory {sh_track} "
+                             f"!= {runs[False][2]}")
+    same_outputs(sh_outs, runs[False][1], "graphed sharded")
+    replays = {name: g.replays for name, g in sh.graphs.items()}
+    print(f"graphed sharded: ShardedReceiver over {card}, the coherent AFC "
+          f"configuration ({ga.samples_per_step} samples, "
+          f"{ga.baseband_samples_per_step} baseband samples a step), "
+          f"{len(sh_outs)} steps: AFC status per step "
+          f"{[t[0] for t in sh_track]} equal to graphed=False's, every "
+          f"RxOutputs field bit-equal; replays per structure {replays}")
+    graph_report(sh, "sharded", dev)
+    if not sh.graphed or min(replays.values()) < 1:
+        raise AssertionError("graphed sharded: a structure's graph never "
+                             "ran")
+
+    ps = dataclasses.replace(flagship_params(tiny=tiny), shards=SHARD_D)
+    gs = derive_geometry(ps)
+    dial = shard_dial(gs)
+    iqs = make_input(gs, steps=SHARD_STEPS)
+    br = ShardedBatchRunner(ps, k_steps=SHARD_K, outputs=("audio", "baseb"),
+                            devices=card, graphed=graphed)
+    br.tune(dial)
+    got = br.process(iqs)
+    streamed = run_sharded(ps, iqs, card, dial, graphed=False)
+    for f in ("audio", "baseb"):
+        if not np.array_equal(got[f], torch.cat(
+                [getattr(o, f) for o in streamed]).cpu().numpy()):
+            raise AssertionError(f"graphed sharded batch: {f} differs from "
+                                 f"the streamed receiver")
+    dials3 = multi_dials(gs, SHARD_SUB)
+    iq3 = make_input(gs, seed=2, steps=SHARD_SUB_STEPS, tones=dials3,
+                     tone_amplitude=MULTI_TONE_AMPLITUDE)
+    sub = {}
+    for g in (graphed, False):
+        mx = ShardedMultiReceiver(ps, SHARD_SUB, card, graphed=g)
+        for k, f in enumerate(dials3):
+            mx.tune_subch(k, f)
+        sub[g] = list(mx.run(iq3))
+    same_outputs(sub[graphed], sub[False], "graphed sharded multi")
+    print(f"graphed sharded: ShardedBatchRunner(k_steps={SHARD_K}) from its "
+          f"graph ({br.graphed.replays} replays) over {SHARD_STEPS} steps "
+          f"bit-equal to the eager streamed ShardedReceiver; "
+          f"ShardedMultiReceiver K={SHARD_SUB} over {SHARD_SUB_STEPS} steps "
+          f"bit-equal to graphed=False")
+    if br.graphed is None:
+        raise AssertionError("graphed sharded batch: not captured")
+
+    if on_card:
+        phase_graphed_timing(dev, flag, eme, eme_eager, iqe, pm, dials, iqm)
+    print(f"graphed: phase 21 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+
+def phase_graphed_timing(dev: dict, flag, eme, eme_eager, iqe: np.ndarray,
+                         pm, dials, iqm: np.ndarray) -> None:
+    """ms per step of the graphed and the eager receivers in turns, whole
+    process_block loops between CUDA events (the graphed step's copies of
+    its outputs, the AFC's read and the host's control included): the
+    flagship, the EME configuration (and its graph without the AFC's read
+    and the copies: ``Receiver._advance``) and MultiReceiver at K = 1 and
+    K = MULTI_K.  Every receiver is made (captured) first; then one pass
+    of torch.profiler over graphed flagship steps and an eager loop, the
+    warm-up after which ``--regimes`` saw the fast regime.  Each turn's
+    number is printed, so that two regimes show as two numbers."""
+    from linrad_tpu_torch.pipeline.receiver import MultiReceiver, Receiver
+
+    def on_card(x: np.ndarray, s: int, first: int, n: int) -> list:
+        return [torch.from_numpy(x[i * s:(i + 1) * s]).cuda()
+                for i in range(first, first + n)]
+
+    flag_eager = Receiver(flag.params, device=flag.device, graphed=False)
+    flag_eager.tune(TUNE_HZ)
+    multis = {}
+    for k in (1, MULTI_K):
+        for g in (None, False):
+            rx = MultiReceiver(pm, k, graphed=g, recorded=recorded_fft1)
+            for j in range(k):
+                rx.tune_subch(j, dials[j])
+            multis[("graphed" if g is None else "eager", k)] = rx
+    fb = on_card(make_input(flag.geo, seed=1), flag.geo.samples_per_step, 0,
+                 STEPS)
+    eb = on_card(iqe, eme.geo.samples_per_step, EME_STEPS, EME_TIME_STEPS)
+    mb = on_card(iqm, multis[("graphed", 1)].geo.samples_per_step,
+                 MULTI_STEPS, MULTI_TIME_STEPS)
+
+    def loop(rx, blocks, bare=False):
+        step = rx._advance if bare else rx.process_block
+
+        def fn():
+            for b in blocks:
+                step(b)
+        return fn
+
+    # a graphed step on device input makes no host synchronisation
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        flag.process_block(fb[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    # the warm-up: the profiler's pass, then an eager loop of each
+    prof = profile_call(loop(flag, fb))
+    print(f"graphed timing: a graphed flagship Receiver step on device "
+          f"input makes no host synchronisation; under torch.profiler "
+          f"{prof['ops'] // STEPS} device kernels and copies and "
+          f"{prof['busy_ms'] / STEPS:.3f} ms of device time per step in "
+          f"{prof['wall_ms'] / STEPS:.3f} ms of wall (device time / wall "
+          f"{prof['busy_ms'] / prof['wall_ms']:.4f}) [{dev['smi']}]")
+    loop(flag_eager, fb[:2])()
+    loop(eme_eager, eb[:2])()
+    for rx in multis.values():
+        loop(rx, mb[:2])()
+
+    def turns(label: str, fns: dict, order: tuple, n: int, samples: int
+              ) -> dict:
+        times: dict = {}
+        for name in order:
+            t0 = time.perf_counter()
+            ms = timed_ms(fns[name]) / n
+            host = 1e3 * (time.perf_counter() - t0) / n
+            times.setdefault(name, []).append(ms)
+            print(f"graphed timing {label} {name}: {ms:.3f} ms/step (CUDA "
+                  f"events around {n} steps), host {host:.3f} ms/step, "
+                  f"{samples / ms / 1e3:.3f} complex Msamples/s "
+                  f"[{dev['smi']}]")
+        print(f"graphed timing {label}: ms/step " + "; ".join(
+            f"{name} {min(v):.3f}-{max(v):.3f}" for name, v in times.items()))
+        return times
+
+    def ratio(t: dict, a: str, b: str) -> float:
+        return sum(t[a]) / sum(t[b])
+
+    t = turns("flagship", {"graphed": loop(flag, fb),
+                           "eager": loop(flag_eager, fb)},
+              ("graphed", "eager", "eager", "graphed"), STEPS,
+              flag.geo.samples_per_step)
+    print(f"graphed timing flagship: eager / graphed "
+          f"{ratio(t, 'eager', 'graphed'):.2f}")
+    reads = eme.control.host_reads
+    t = turns("eme", {"graphed": loop(eme, eb),
+                      "graphed, no AFC read": loop(eme, eb, bare=True),
+                      "eager": loop(eme_eager, eb)},
+              ("graphed", "graphed, no AFC read", "eager", "eager",
+               "graphed, no AFC read", "graphed"), EME_TIME_STEPS,
+              eme.geo.samples_per_step)
+    reads = (eme.control.host_reads - reads) / (2 * EME_TIME_STEPS)
+    cost = (sum(t["graphed"]) - sum(t["graphed, no AFC read"])) / 2
+    print(f"graphed timing eme: eager / graphed "
+          f"{ratio(t, 'eager', 'graphed'):.2f}; {reads:.0f} host read per "
+          f"Receiver step; the AFC's read, the control and the copies of the "
+          f"outputs cost {cost:.3f} ms/step over the graph alone")
+    fns = {f"{mode} K={k}": loop(rx, mb) for (mode, k), rx in multis.items()}
+    t = turns("multi", fns,
+              ("graphed K=1", f"graphed K={MULTI_K}", f"eager K={MULTI_K}",
+               "eager K=1", "eager K=1", f"eager K={MULTI_K}",
+               f"graphed K={MULTI_K}", "graphed K=1"), MULTI_TIME_STEPS,
+              multis[("graphed", 1)].geo.samples_per_step)
+    k24 = f"K={MULTI_K}"
+    print(f"graphed timing multi: K={MULTI_K} / K=1 graphed "
+          f"{ratio(t, f'graphed {k24}', 'graphed K=1'):.3f}, eager "
+          f"{ratio(t, f'eager {k24}', 'eager K=1'):.3f}; eager / graphed "
+          f"K=1 {ratio(t, 'eager K=1', 'graphed K=1'):.2f}, {k24} "
+          f"{ratio(t, f'eager {k24}', f'graphed {k24}'):.2f}")
+    for (mode, k), rx in multis.items():
+        if mode == "graphed":
+            graph_report(rx, f"multi K={k} (timing)", dev)
+
+
 # stage functions of pipeline/chain.py: (module attribute of chain, name)
 STAGES = [(None, "fft1_step"), ("sellim_ops", "update_liminfo"),
           ("sellim_ops", "liminfo_gains"), (None, "timf2_step"),
@@ -2627,7 +3079,8 @@ def stage_split(dev: dict, k_sub: int = MULTI_K, steps: int = 6) -> None:
     iq = make_input(geo, seed=5, steps=steps + 2, tones=dials,
                     tone_amplitude=MULTI_TONE_AMPLITUDE,
                     spur=(MULTI_SPUR_HZ, MULTI_SPUR_AMPLITUDE))
-    rx = MultiReceiver(p, k_sub)
+    # the eager step: its stage functions are wrapped below
+    rx = MultiReceiver(p, k_sub, graphed=False)
     for k, f in enumerate(dials):
         rx.tune_subch(k, f)
     # a slot on each carrier, as the manager sets them in phase 8
@@ -2677,6 +3130,7 @@ def stage_split(dev: dict, k_sub: int = MULTI_K, steps: int = 6) -> None:
 
 
 def main() -> None:
+    t0 = time.perf_counter()
     dev = phase_device()
     phase_build()
     if sys.argv[1:] == ["--stages"]:
@@ -2705,6 +3159,9 @@ def main() -> None:
     launches += phase_fleet(dev)
     launches += phase_weak(dev)
     launches += phase_sharded(dev)
+    launches += phase_graphed(dev)
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} "
+          f"s [{dev['smi']}]")
     print(json.dumps({"kernels": [{
         "name": "fused_fft1", "route": "cuda",
         "source": "linrad_tpu_torch/csrc/fused_fft1.cu",

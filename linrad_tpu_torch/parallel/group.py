@@ -33,6 +33,7 @@ Both give the same bits for the same shards.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.distributed as dist
@@ -46,6 +47,15 @@ def _map(fn, tree):
         return fn(tree)
     return type(tree)(**{f.name: _map(fn, getattr(tree, f.name))
                          for f in dataclasses.fields(tree)})
+
+
+@functools.lru_cache(maxsize=16)
+def _divisor(n: int, dtype: torch.dtype, device: torch.device
+             ) -> torch.Tensor:
+    """n as a 0-dim tensor on the device, made once: a copy from the host
+    inside a step would wait for the host and could not be captured into
+    a CUDA graph."""
+    return torch.tensor(n, dtype=dtype, device=device)
 
 
 def _ordered_sum(parts: list[torch.Tensor]) -> torch.Tensor:
@@ -115,8 +125,7 @@ class LocalGroup:
         # a 0-dim divisor: a Python one is a multiplication by the
         # reciprocal on a CUDA tensor
         total = self.psum(xs)
-        return total / torch.tensor(self.axis_size, dtype=total.dtype,
-                                    device=total.device)
+        return total / _divisor(self.axis_size, total.dtype, total.device)
 
     def pick_last(self, xs: list[torch.Tensor]) -> torch.Tensor:
         return self._gather([xs[-1].to(self.home)])[-1]

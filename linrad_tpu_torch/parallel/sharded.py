@@ -43,11 +43,15 @@ from ..ops.framing import frame_stream, overlap_add
 from ..ops.mix1 import Mix1State, frac_ramp, mix1_step
 from ..ops.timf2 import Timf2State
 from ..params import RxParams
+from ..pipeline.batch import BatchRunner
 from ..pipeline.chain import (NBState, RxOutputs, RxState, RxTables,
                               narrowband_post_mix1)
 from ..pipeline.control import WeakSignalControl
-from ..pipeline.receiver import (_as_block, _block_rows, _pulsewidth,
-                                 resolve_device)
+from ..pipeline.receiver import (GraphedReceiver, MultiState, PairedState,
+                                 _as_block, _block_dtype, _block_rows,
+                                 _owned, _pulsewidth, _tuning_args,
+                                 pair_step, resolve_device,
+                                 tuning_structures)
 from ..weak.spur import spur_subtract_step
 from .group import LocalGroup
 
@@ -463,12 +467,31 @@ def shard_group(devices):
     return LocalGroup([resolve_device(d) for d in devices])
 
 
+def graph_group(group, graphed: bool | None) -> bool:
+    """Whether the sharded step replays from CUDA graphs: ``graphed=None``
+    means where every shard is on one CUDA device of a LocalGroup.  A CUDA
+    graph belongs to one device, and the step over several devices moves
+    data between their streams (a DistGroup: between processes), so
+    ``graphed=True`` there raises."""
+    one = type(group) is LocalGroup and len(set(group.devices)) == 1
+    if graphed and not one:
+        raise NotImplementedError(
+            "graphed=True: the sharded step over several devices or a "
+            "DistGroup runs eagerly; graphing it across cards is queued in "
+            "ROADMAP.md, queue 1 item 6")
+    return one and group.home.type == "cuda" if graphed is None \
+        else bool(graphed)
+
+
 class _ShardedBase:
     """Group, params with ``shards`` set to the group's size, geometry,
     tables and the blanker's pulse width."""
 
-    def _setup(self, params: RxParams, devices, calibration) -> None:
+    def _setup(self, params: RxParams, devices, calibration,
+               graphed: bool | None = None) -> bool:
+        """Returns whether the step is to replay from CUDA graphs."""
         self.group = shard_group(devices)
+        want = graph_group(self.group, graphed)
         self.device = self.group.home
         d = self.group.axis_size
         if params.shards != d:
@@ -478,14 +501,20 @@ class _ShardedBase:
         self.tables = RxTables.create(self.geo, params, self.device,
                                       calibration)
         self.blanker_pulsewidth = _pulsewidth(self.geo)
+        return want
 
-    def _blocks(self, block) -> list:
+    def _shard_rows(self, block) -> list:
         """One step of input as this process's shards' rows: a whole block
         (numpy or tensor) is split; a list (``scatter_step_block``) is
         taken as it is."""
         if isinstance(block, (list, tuple)):
             return list(block)
         return self.group.scatter(_as_block(block, self.geo, self.device), 0)
+
+    def _shard_shapes(self) -> list:
+        """The per-shard input shapes of one step, all on one device."""
+        d = self.group.axis_size
+        return [(_block_rows(self.geo) // d, self.geo.channels)] * d
 
     def run(self, iq: np.ndarray):
         """Stream a recording; yields RxOutputs per step."""
@@ -496,7 +525,7 @@ class _ShardedBase:
             yield self.process_block(iq[i * s:(i + 1) * s])
 
 
-class ShardedReceiver(_ShardedBase):
+class ShardedReceiver(_ShardedBase, GraphedReceiver):
     """A receiver running one pipeline over a shard group.
 
     The host feeds whole step blocks, which are split along time over the
@@ -507,60 +536,83 @@ class ShardedReceiver(_ShardedBase):
     devices: one device per shard ("cuda:0", "cuda:1", ...; a device may
     repeat, and ``["cpu"] * 4`` runs on the CPU), a group from
     :mod:`.group` or :func:`.multihost.global_time_mesh`, or None for every
-    CUDA device.  ``params.shards`` is set to the group's size."""
+    CUDA device.  ``params.shards`` is set to the group's size.
+
+    With every shard on one CUDA device the step replays from CUDA graphs,
+    one per tuning structure the parameters can reach, as the JAX
+    receiver jits one step per structure; the outputs are the caller's
+    copies (``graphed``, ``recorded`` as for ``pipeline.Receiver``).  Over
+    several devices or a DistGroup it runs eagerly (``graphed`` False;
+    True raises NotImplementedError)."""
 
     def __init__(self, params: RxParams, devices=None,
-                 calibration: dict | None = None):
-        self._setup(params, devices, calibration)
+                 calibration: dict | None = None, *,
+                 graphed: bool | None = None, recorded=None):
+        self.graphs = {}
+        want = self._setup(params, devices, calibration, graphed)
         geo, params = self.geo, self.params
         self.state = RxState.create(geo, self.device,
                                     spur=params.spur_enable,
                                     pol=params.pol_adapt_enable,
                                     fir_len=_fir_len(self.tables))
         pw = self.blanker_pulsewidth
-        self._step = make_sharded_rx_step(geo, params, self.group, pw,
-                                          tables=self.tables)
-        # the AFC's paths: per-frame bins, and the coherent (bins, frac,
-        # slope) frames
-        self._step_afc = make_sharded_rx_step(
-            geo, params, self.group, pw, per_frame_tune=True,
-            tables=self.tables)
-        self._step_coh = make_sharded_rx_step(
-            geo, params, self.group, pw, coherent_tune=True,
-            tables=self.tables)
-        self._tune_bin = torch.zeros((), dtype=torch.int64,
-                                     device=self.device)
-        self._tune_frac = torch.zeros((), dtype=torch.float32,
-                                      device=self.device)
+        self._steps = {
+            "bin": make_sharded_rx_step(geo, params, self.group, pw,
+                                        tables=self.tables),
+            # the AFC's paths: per-frame bins, and the coherent (bins,
+            # frac, slope) frames
+            "frames": make_sharded_rx_step(
+                geo, params, self.group, pw, per_frame_tune=True,
+                tables=self.tables),
+            "coherent": make_sharded_rx_step(
+                geo, params, self.group, pw, coherent_tune=True,
+                tables=self.tables)}
+        # the one-bin tuning, written in place by tune()
+        self._tune0 = (torch.zeros((), dtype=torch.int64, device=self.device),
+                       torch.zeros((), dtype=torch.float32,
+                                   device=self.device))
+        self._tune_bin, self._tune_frac = self._tune0
         self._tune_slope = None
         self.control = WeakSignalControl(geo, params, self.device)
+        self.graphed = want
+        if want:
+            steps = {}
+            for name, shapes in tuning_structures(params, geo).items():
+                args = _tuning_args(shapes, self.device)
+                if name == "bin":
+                    args = self._tune0 + (None,)
+                steps[name] = (self._steps[name], args)
+            self._capture_graphs(steps, self._tables, self._state,
+                                 self._shard_shapes(), _block_dtype(geo),
+                                 recorded)
+            self._state = None
 
     def tune(self, freq_hz: float) -> None:
         """Tune to the nearest fftx bin (the sharded steps take no
         fractional-bin ramp until the coherent AFC supplies one)."""
         n = self.geo.fftx_size
         fs = self.geo.timf1_sampling_speed
-        self._tune_bin = torch.tensor(int(round(freq_hz / fs * n)) % n,
-                                      dtype=torch.int64, device=self.device)
-        self._tune_frac = torch.zeros((), dtype=torch.float32,
-                                      device=self.device)
+        self._tune0[0].fill_(int(round(freq_hz / fs * n)) % n)
+        self._tune0[1].zero_()
+        self._tune_bin, self._tune_frac = self._tune0
         self._tune_slope = None
         self.control.on_tune(freq_hz)
 
     def process_block(self, block) -> RxOutputs:
         """One step: a whole (samples_per_step, C) block, or this
         process's shards' rows as ``scatter_step_block`` gives them."""
-        blocks = self._blocks(block)
-        if self._tune_slope is not None:       # coherent drift tracking
-            self.state, out = self._step_coh(
-                self.tables, self.state, blocks, self._tune_bin,
-                self._tune_frac, self._tune_slope)
-        elif self._tune_bin.dim():              # per-frame AFC tuning
-            self.state, out = self._step_afc(self.tables, self.state,
-                                             blocks, self._tune_bin)
+        blocks = self._shard_rows(block)
+        tune = (self._tune_bin, self._tune_frac, self._tune_slope)
+        if self.graphs:
+            out = _owned(self._graph_for(tune)(blocks))
         else:
-            self.state, out = self._step(self.tables, self.state, blocks,
-                                         self._tune_bin)
+            if self._tune_slope is not None:   # coherent drift tracking
+                step = self._steps["coherent"]
+            elif self._tune_bin.dim():          # per-frame AFC tuning
+                step = self._steps["frames"]
+            else:
+                step = self._steps["bin"]
+            self.state, out = step(self.tables, self.state, blocks, *tune)
         (self._tune_bin, self._tune_frac, self._tune_slope,
          self.state) = self.control.update(
             out, self._tune_bin, self.state, tune_frac=self._tune_frac,
@@ -568,26 +620,37 @@ class ShardedReceiver(_ShardedBase):
         return out
 
 
-class ShardedMultiReceiver(_ShardedBase):
+class ShardedMultiReceiver(PairedState, _ShardedBase, GraphedReceiver):
     """K independently tuned sub-receivers over one sharded wideband front
-    end: the shard-group twin of pipeline.receiver.MultiReceiver."""
+    end: the shard-group twin of pipeline.receiver.MultiReceiver.  With
+    every shard on one CUDA device the step replays from one CUDA graph,
+    as ShardedReceiver's does."""
 
     def __init__(self, params: RxParams, n_subch: int, devices=None,
-                 calibration: dict | None = None):
-        self._setup(params, devices, calibration)
+                 calibration: dict | None = None, *,
+                 graphed: bool | None = None, recorded=None):
+        self.graphs = {}
+        want = self._setup(params, devices, calibration, graphed)
         self.n_subch = n_subch
         fir_len = _fir_len(self.tables)
-        self.state = RxState.create(self.geo, self.device,
-                                    spur=self.params.spur_enable,
-                                    fir_len=fir_len)
-        self.nbs = NBState.create_stacked(
-            self.geo, n_subch, self.device,
-            pol=self.params.pol_adapt_enable, fir_len=fir_len)
-        self._step = make_sharded_multi_rx_step(
+        self._state = MultiState(
+            rx=RxState.create(self.geo, self.device,
+                              spur=self.params.spur_enable, fir_len=fir_len),
+            nbs=NBState.create_stacked(
+                self.geo, n_subch, self.device,
+                pol=self.params.pol_adapt_enable, fir_len=fir_len))
+        self._step = pair_step(make_sharded_multi_rx_step(
             self.geo, self.params, self.group, n_subch,
-            self.blanker_pulsewidth, tables=self.tables)
+            self.blanker_pulsewidth, tables=self.tables))
         self._tune_bins = torch.zeros(n_subch, dtype=torch.int64,
                                       device=self.device)
+        self.graphed = want
+        if want:
+            self._capture_graphs({"bins": (self._step, (self._tune_bins,))},
+                                 self._tables, self._state,
+                                 self._shard_shapes(), _block_dtype(self.geo),
+                                 recorded)
+            self._state = None
 
     def tune_subch(self, k: int, freq_hz: float) -> None:
         n = self.geo.fftx_size
@@ -596,61 +659,89 @@ class ShardedMultiReceiver(_ShardedBase):
 
     def process_block(self, block) -> RxOutputs:
         """One step; outputs.audio/baseb/agc_gain have shape (K, S, C)."""
-        (self.state, self.nbs), out = self._step(
-            self.tables, self.state, self.nbs, self._blocks(block),
-            self._tune_bins)
-        return out
+        blocks = self._shard_rows(block)
+        if not self.graphs:
+            self._state, out = self._step(self.tables, self._state, blocks,
+                                          self._tune_bins)
+            return out
+        return _owned(self._graph_for((self._tune_bins,))(blocks))
 
 
-class ShardedBatchRunner(_ShardedBase):
+class ShardedBatchRunner(_ShardedBase, BatchRunner):
     """Throughput mode over a shard group: K sharded steps per call.
 
-    A call copies its K blocks to the home device once, runs the K
-    sharded steps one after another and copies the collected fields back
-    once: the same function as the JAX runner's ``lax.scan`` around the
-    sharded step.  The steps run eagerly (a CUDA graph of them is queued
-    in ROADMAP.md).  State chains through the steps exactly as across
-    streamed ShardedReceiver steps."""
+    With every shard on one CUDA device this is a BatchRunner of the
+    sharded step: the step (the split of each block among the shards
+    included) captured into a CUDA graph, K replays per call, the blocks
+    and the collected fields staged through page-locked host memory;
+    ``graphed`` is the captured step, as BatchRunner's.  Over several
+    devices or a DistGroup (``graphed`` None; ``graphed=True`` raises
+    NotImplementedError) a call copies its K blocks to the home device
+    once, runs the K sharded steps eagerly one after another and copies
+    the collected fields back once: the same function as the JAX runner's
+    ``lax.scan`` around the sharded step.  State chains through the steps
+    exactly as across streamed ShardedReceiver steps."""
 
     def __init__(self, params: RxParams, k_steps: int = 16,
                  outputs: tuple = ("audio", "baseb"), devices=None,
-                 calibration: dict | None = None):
-        self._setup(params, devices, calibration)
+                 calibration: dict | None = None, *,
+                 graphed: bool | None = None, recorded=None):
+        want = self._setup(params, devices, calibration, graphed)
         self.k = int(k_steps)
         self.outputs = tuple(outputs)
-        self.state = RxState.create(self.geo, self.device,
-                                    spur=self.params.spur_enable,
-                                    pol=self.params.pol_adapt_enable,
-                                    fir_len=_fir_len(self.tables))
+        self._recorded = recorded or (lambda: 0)
+        state = RxState.create(self.geo, self.device,
+                               spur=self.params.spur_enable,
+                               pol=self.params.pol_adapt_enable,
+                               fir_len=_fir_len(self.tables))
         self._step = make_sharded_rx_step(self.geo, self.params, self.group,
                                           self.blanker_pulsewidth,
                                           tables=self.tables)
         self._tune_bin = torch.zeros((), dtype=torch.int64,
                                      device=self.device)
+        self._rows = _block_rows(self.geo)
+        self.graphed = None
+        self.kernels_per_replay = 0
+        self._state = state
+        if want:
+            group, step = self.group, self._step
 
-    def tune(self, freq_hz: float) -> None:
-        n = self.geo.fftx_size
-        fs = self.geo.timf1_sampling_speed
-        self._tune_bin = torch.tensor(int(round(freq_hz / fs * n)) % n,
-                                      dtype=torch.int64, device=self.device)
+            def whole(tables, state, block, tune_bin):
+                return step(tables, state, group.scatter(block, 0), tune_bin)
+
+            self._capture(whole, state, (self._rows, self.geo.channels),
+                          _block_dtype(self.geo), (self._tune_bin,))
+            self._state = None
 
     @property
-    def samples_per_call(self) -> int:
-        return self.k * self.geo.samples_per_step
+    def state(self) -> RxState:
+        return self._state if self.graphed is None else self.graphed.state
+
+    @state.setter
+    def state(self, value: RxState) -> None:
+        if self.graphed is None:
+            self._state = value
+        else:
+            self.graphed.state = value
+
+    @property
+    def kernel_launches(self) -> int:
+        return 0 if self.graphed is None else super().kernel_launches
 
     def process(self, iq: np.ndarray) -> dict[str, np.ndarray]:
         """Process a recording; returns the concatenated output streams.
         Trailing samples short of a whole K-step call are dropped."""
+        if self.graphed is not None:
+            return super().process(iq)
         if iq.ndim == 1:
             iq = iq[:, None]
-        rows = _block_rows(self.geo)
-        per = self.k * rows
-        dtype = torch.complex64 if self.geo.iq_input else torch.float32
+        per = self.k * self._rows
+        dtype = _block_dtype(self.geo)
         collected: dict[str, list] = {f: [] for f in self.outputs}
         for i in range(iq.shape[0] // per):
             seg = torch.as_tensor(iq[i * per:(i + 1) * per]).to(
                 device=self.device, dtype=dtype)
-            seg = seg.reshape(self.k, rows, -1)
+            seg = seg.reshape(self.k, self._rows, -1)
             stacks: dict[str, list] = {f: [] for f in self.outputs}
             for k in range(self.k):
                 self.state, out = self._step(

@@ -8,7 +8,9 @@ card, sets the step time.  The JAX package rolls K steps into one
 CUDA graph.  :class:`GraphedStep` captures the step once, with its state,
 its input block and its tuning at fixed addresses, and replays it: one
 host operation per step instead of thousands, no host synchronisation in
-between.  :class:`BatchRunner` feeds K blocks per call through it.
+between.  :class:`BatchRunner` feeds K blocks per call through it; the
+receivers of :mod:`.receiver` and :mod:`..parallel.sharded` replay one
+step per block, one graph per tuning structure over shared buffers.
 
 State chains through the replays exactly as it does across streamed
 steps: the captured graph ends by copying every leaf of the new state
@@ -46,6 +48,20 @@ def tensor_leaves(tree) -> list[torch.Tensor]:
             for t in tensor_leaves(getattr(tree, f.name))]
 
 
+def assign_leaves(static, value, what: str = "state") -> None:
+    """Copy every leaf of the tree ``value`` into the same leaf of the tree
+    ``static``, but those that are already the static tensor (compared by
+    identity).  A tree of another structure, or a leaf of another shape
+    or dtype, raises ValueError."""
+    old, new = tensor_leaves(static), tensor_leaves(value)
+    if [(t.shape, t.dtype) for t in old] != [(t.shape, t.dtype)
+                                             for t in new]:
+        raise ValueError(f"GraphedStep: {what} of another structure")
+    for o, n in zip(old, new):
+        if n is not o:
+            o.copy_(n)
+
+
 class GraphedStep:
     """A step function captured into a CUDA graph, with everything the
     graph reads at fixed addresses.
@@ -53,46 +69,70 @@ class GraphedStep:
     step:   ``step(tables, state, block, *args) -> (state, outputs)``,
             functional (it returns new state tensors) and free of host
             synchronisation.
-    state:  the initial state; cloned into buffers this object owns.
-    block_shape, block_dtype: one step's input.
+    state:  the initial state, any tree of dataclasses of tensors; cloned
+            into buffers this object owns.
+    block_shape, block_dtype: one step's input: a shape, or a list of
+            shapes for a step that takes a list of tensors (the sharded
+            steps' per-shard rows).
     args:   tensors handed to every step after the block (the tuning);
             the graph reads them where they are, so the caller retunes by
             writing into them (``copy_``/``fill_``), never by rebinding.
+    share:  another GraphedStep whose tables, state and input buffers this
+            one reads and writes instead of cloning its own: several graphs
+            of one receiver (one per tuning structure) over one state.
+            Each graph keeps its own private memory pool, so they may
+            replay in any order.
+    recorded: a running count of kernel calls recorded into CUDA graphs
+            (``lambda: fused_fft1.captured``), read around the capture:
+            ``kernels`` is the difference, the counted kernels one replay
+            launches (0 without it, and on the CPU).
 
     ``__call__(block=None)`` copies ``block`` into the static input when
     given, replays, and returns the step's outputs.  The output tensors
     belong to the graph's memory pool and the next replay overwrites them:
-    copy what must be kept.  ``state`` is the static state; assigning to
-    it copies leaf by leaf.  One step is captured whatever the caller's
-    batch, so capture time and the graph's private memory do not grow
-    with it.
+    copy what must be kept.  ``state`` and ``tables`` are the static
+    buffers; assigning to either copies the leaves that are not already
+    the static ones (compared by identity), so handing back the state as
+    it was read copies nothing.  One step is captured whatever the
+    caller's batch, so capture time and the graph's private memory do not
+    grow with it.
 
     Before the capture the step runs ``warmup`` times on the capture
     stream, on a scratch copy of the state: the first use of the fused
     fft1 kernel on a stream copies its twiddle table from the host and
-    zeroes its scratch, and the FFT plans are made at first use; none of
-    that may happen inside a capture.
+    zeroes its scratch, and the FFT plans and cached device tables are
+    made at first use; none of that may happen inside a capture.
 
     On a CPU device there is no graph: each call runs the same body, the
     write-back of the state included, eagerly."""
 
-    def __init__(self, step, tables, state, block_shape: tuple,
+    def __init__(self, step, tables, state, block_shape,
                  block_dtype: torch.dtype, args: tuple = (), *,
-                 warmup: int = 3):
+                 warmup: int = 3, share: "GraphedStep | None" = None,
+                 recorded: Callable[[], int] | None = None):
         self._step = step
-        self._tables = tables
         self._args = tuple(args)
-        self._state = _map_tensors(torch.clone, state)
-        leaves = tensor_leaves(self._state)
-        self.device = leaves[0].device
-        self.block = torch.zeros(block_shape, dtype=block_dtype,
-                                 device=self.device)
+        if share is None:
+            self._tables = tables
+            self._state = _map_tensors(torch.clone, state)
+            self.device = tensor_leaves(self._state)[0].device
+            if isinstance(block_shape, list):
+                self.block = [torch.zeros(sh, dtype=block_dtype,
+                                          device=self.device)
+                              for sh in block_shape]
+            else:
+                self.block = torch.zeros(block_shape, dtype=block_dtype,
+                                         device=self.device)
+        else:
+            self._tables, self._state = share._tables, share._state
+            self.device, self.block = share.device, share.block
         self.replays = 0
+        self.kernels = 0
         self.capture_seconds = 0.0
         self.graph = None
         self._outs = None
         if self.device.type == "cuda":
-            self._capture(warmup)
+            self._capture(warmup, recorded or (lambda: 0))
 
     def _body(self):
         """One step from the static state and input, then the new state
@@ -115,7 +155,7 @@ class GraphedStep:
                 o.copy_(n)
         return out
 
-    def _capture(self, warmup: int) -> None:
+    def _capture(self, warmup: int, recorded: Callable[[], int]) -> None:
         dev = self.device
         self.stream = torch.cuda.Stream(dev)
         self.stream.wait_stream(torch.cuda.current_stream(dev))
@@ -127,11 +167,18 @@ class GraphedStep:
         self.stream.synchronize()
         del s, _out
         t0 = time.perf_counter()
+        before = recorded()
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, stream=self.stream):
             self._outs = self._body()
         torch.cuda.synchronize(dev)
+        self.kernels = recorded() - before
         self.capture_seconds = time.perf_counter() - t0
+
+    @property
+    def args(self) -> tuple:
+        """The tensors the graph reads after the block (the tuning)."""
+        return self._args
 
     @property
     def state(self):
@@ -139,20 +186,26 @@ class GraphedStep:
 
     @state.setter
     def state(self, value) -> None:
-        old, new = tensor_leaves(self._state), tensor_leaves(value)
-        if [(t.shape, t.dtype) for t in old] != [(t.shape, t.dtype)
-                                                 for t in new]:
-            raise ValueError("GraphedStep: a state of another structure")
-        for o, n in zip(old, new):
-            o.copy_(n)
+        assign_leaves(self._state, value, "state")
+
+    @property
+    def tables(self):
+        return self._tables
+
+    @tables.setter
+    def tables(self, value) -> None:
+        assign_leaves(self._tables, value, "tables")
 
     @property
     def outputs(self):
         """The outputs of the last call (graph-owned on a CUDA device)."""
         return self._outs
 
-    def __call__(self, block: torch.Tensor | None = None):
-        if block is not None:
+    def __call__(self, block=None):
+        if isinstance(block, (list, tuple)):
+            for dst, src in zip(self.block, block, strict=True):
+                dst.copy_(src.reshape(dst.shape), non_blocking=True)
+        elif block is not None:
             self.block.copy_(block.reshape(self.block.shape),
                              non_blocking=True)
         if self.graph is None:
@@ -196,8 +249,8 @@ class BatchRunner:
     wrappers, so a caller who wants them counted hands the runner
     ``recorded``: a function that returns a running count of kernel calls
     recorded into CUDA graphs (``lambda: fused_fft1.captured`` for the
-    fused fft1).  The runner reads it before and after its capture;
-    ``kernels_per_replay`` is the difference (0 without ``recorded``), and
+    fused fft1).  ``kernels_per_replay`` is the count its capture
+    recorded (``GraphedStep.kernels``; 0 without ``recorded``), and
     ``kernel_launches`` that times the replays made."""
 
     def __init__(self, params: RxParams, k_steps: int = 16,
@@ -246,10 +299,9 @@ class BatchRunner:
         """The step as a GraphedStep on one step's input (shape, dtype),
         the K-deep input and output stacks on the device, and the host
         buffers."""
-        before = self._recorded()
         self.graphed = GraphedStep(step, self.tables, state, shape, dtype,
-                                   args)
-        self.kernels_per_replay = self._recorded() - before
+                                   args, recorded=self._recorded)
+        self.kernels_per_replay = self.graphed.kernels
         self._blocks = torch.zeros((self.k, *shape), dtype=dtype,
                                    device=self.device)
         self._stacks = None

@@ -48,15 +48,18 @@ def save_receiver(path: str, rx) -> None:
     np.savez(path, **{META: json.dumps(meta)}, **data)
 
 
-def load_receiver(path: str, device="cuda"):
+def load_receiver(path: str, device="cuda", **receiver_kw):
     """Rebuild a Receiver on ``device`` resuming exactly where it
-    stopped."""
+    stopped.  ``receiver_kw``: further keywords of ``Receiver``
+    (``graphed``, ``recorded``); a graphed receiver takes the saved state
+    into its graphs' buffers."""
     from .receiver import Receiver
 
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(str(z[META]))
         tree = {k: z[k] for k in z.files if k != META}
-    rx = Receiver(RxParams.from_json(meta["params"]), device=device)
+    rx = Receiver(RxParams.from_json(meta["params"]), device=device,
+                  **receiver_kw)
     rx.state = convert.state_from_numpy(tree, rx.device)
     rx._tune_bin = torch.tensor(meta["tune_bin"], dtype=torch.int64,
                                 device=rx.device)

@@ -16,6 +16,18 @@ Both receivers run on ``device="cuda"`` unless the caller names another
 device, and raise when there is no CUDA device: nothing carries on on the
 CPU by itself.
 
+On a CUDA device both replay their step from CUDA graphs
+(:class:`.batch.GraphedStep`), the port's counterpart of the JAX
+receivers' ``jax.jit``: the graphs are captured when the receiver is
+made, one per tuning structure its parameters can reach (JAX compiles
+once per structure too), over one set of static state, table and input
+buffers.  The host work that the JAX receivers do per step (the AFC's
+read, the spur manager, the resampler, the hooks) runs outside the
+graph, on copies of the outputs that the caller owns.  ``graphed=False``
+asks for the eager step on the card; on the CPU the step is eager unless
+``graphed=True``, which runs the same graph bodies eagerly.  A capture
+that fails raises: nothing gives way to the eager step by itself.
+
 ``Receiver.run_file`` replays a WAV recording through the runtime's file
 prefetcher (disk reads overlap the device's work) and stages each block
 through page-locked memory.
@@ -35,7 +47,7 @@ from ..geometry import Geometry, derive_geometry
 from ..ops.blanker import BlankerTables
 from ..ops.resample import Resampler
 from ..params import Demod, RxParams
-from .chain import (NBState, RxOutputs, RxState, RxTables,
+from .chain import (NBState, RxOutputs, RxState, RxTables, _map_tensors,
                     make_multi_rx_step, make_rx_step)
 from .control import WeakSignalControl
 
@@ -106,13 +118,184 @@ def _block_rows(geo: Geometry) -> int:
     return geo.samples_per_step if geo.iq_input else 2 * geo.samples_per_step
 
 
+def _block_dtype(geo: Geometry) -> torch.dtype:
+    return torch.complex64 if geo.iq_input else torch.float32
+
+
+def graph_wanted(device: torch.device, graphed: bool | None) -> bool:
+    """``graphed=None``: CUDA graphs on a CUDA device, the eager step
+    elsewhere; True or False as the caller asks."""
+    return device.type == "cuda" if graphed is None else bool(graphed)
+
+
+def tuning_structures(params: RxParams, geo: Geometry) -> dict:
+    """The shapes of (tune_bin, tune_frac, tune_slope) that a receiver with
+    these parameters can reach, by name (None: no slope): one integer bin
+    and its fraction always; per-frame bins from the AFC; per-frame bins,
+    fractions and slopes from the coherent AFC
+    (``WeakSignalControl.update``)."""
+    n = (geo.fftx_frames_per_step,)
+    structures = {"bin": ((), (), None)}
+    if params.afc_enable:
+        if params.afc_coherent:
+            structures["coherent"] = (n, n, n)
+        else:
+            structures["frames"] = (n, (), None)
+    return structures
+
+
+def _structure(tune: tuple) -> tuple:
+    return tuple(None if t is None else tuple(t.shape) for t in tune)
+
+
+def _tuning_args(shapes: tuple, device) -> tuple:
+    """Static tuning tensors of the given (bin, frac, slope) shapes."""
+    b, f, sl = shapes
+    return (torch.zeros(b, dtype=torch.int64, device=device),
+            torch.zeros(f, dtype=torch.float32, device=device),
+            None if sl is None else torch.zeros(sl, dtype=torch.float32,
+                                                device=device))
+
+
+def _owned(out: RxOutputs) -> RxOutputs:
+    """The outputs copied out of a graph's memory pool."""
+    return _map_tensors(torch.clone, out)
+
+
+@dataclasses.dataclass
+class MultiState:
+    """The multi-receivers' carried state as one tree: the wideband state
+    and the K sub-receivers' stacked narrowband states."""
+
+    rx: RxState
+    nbs: NBState
+
+
+def pair_step(multi_step):
+    """A multi-receiver step, ``((state, nbs), outputs)`` from ``(tables,
+    state, nbs, block, tune_bins)``, as a step on a :class:`MultiState`."""
+
+    def step(tables, ms: MultiState, block, tune_bins):
+        (s, nbs), out = multi_step(tables, ms.rx, ms.nbs, block, tune_bins)
+        return MultiState(rx=s, nbs=nbs), out
+
+    return step
+
+
+class GraphedReceiver:
+    """What a receiver that replays its step from CUDA graphs keeps.
+
+    ``graphed``: whether it does; ``graphs``: the captured steps by tuning
+    structure (:func:`tuning_structures`), all over one set of static
+    buffers; ``kernels_per_replay`` and ``kernel_launches``: the counted
+    kernels recorded in a graph (the most any of them records) and
+    launched by this receiver's replays.  A replay launches the captured
+    kernels without a call of their wrappers, so a caller who wants them
+    counted hands the receiver ``recorded``, a running count of kernel
+    calls recorded into CUDA graphs (``lambda: fused_fft1.captured``)."""
+
+    graphed = False
+    graphs: dict
+
+    def _capture_graphs(self, steps: dict, tables, state, block_shape,
+                        dtype: torch.dtype, recorded) -> None:
+        """steps: name -> (step, static args), captured in order; the
+        first graph owns the static buffers and the others share them."""
+        from .batch import GraphedStep
+        lead = None
+        for name, (step, args) in steps.items():
+            g = GraphedStep(step, tables, state, block_shape, dtype, args,
+                            share=lead, recorded=recorded)
+            lead = lead or g
+            self.graphs[name] = g
+
+    @property
+    def _lead(self):
+        """The graph that owns the static buffers."""
+        return next(iter(self.graphs.values()))
+
+    def _carried(self):
+        """The carried state (the graphs' static buffers when graphed)."""
+        return self._lead.state if self.graphs else self._state
+
+    def _carry(self, value) -> None:
+        if self.graphs:
+            self._lead.state = value        # copies the leaves that changed
+        else:
+            self._state = value
+
+    @property
+    def state(self):
+        """The carried state (the graphs' static buffers when graphed);
+        assigning copies into them."""
+        return self._carried()
+
+    @state.setter
+    def state(self, value) -> None:
+        self._carry(value)
+
+    @property
+    def tables(self) -> RxTables:
+        return self._tables
+
+    @tables.setter
+    def tables(self, value: RxTables) -> None:
+        if self.graphs:
+            self._lead.tables = value       # copied into the graphs' tables
+        else:
+            self._tables = value
+
+    def _graph_for(self, tune: tuple):
+        """The graph captured for the structure of ``tune``, with ``tune``
+        written into its static tuning tensors."""
+        key = _structure(tune)
+        for g in self.graphs.values():
+            if _structure(g.args) == key:
+                for static, t in zip(g.args, tune):
+                    if t is not None and t is not static:
+                        static.copy_(t)
+                return g
+        captured = [_structure(g.args) for g in self.graphs.values()]
+        raise ValueError(f"no graph was captured for tuning of shapes "
+                         f"{key}; captured: {captured}")
+
+    @property
+    def kernels_per_replay(self) -> int:
+        return max((g.kernels for g in self.graphs.values()), default=0)
+
+    @property
+    def kernel_launches(self) -> int:
+        return sum(g.kernels * g.replays for g in self.graphs.values())
+
+
+class PairedState:
+    """``state`` and ``nbs`` of a multi-receiver, whose carried state is a
+    :class:`MultiState`; assigning either copies into the graph's."""
+
+    @property
+    def state(self) -> RxState:
+        return self._carried().rx
+
+    @state.setter
+    def state(self, value: RxState) -> None:
+        self._carry(dataclasses.replace(self._carried(), rx=value))
+
+    @property
+    def nbs(self) -> NBState:
+        return self._carried().nbs
+
+    @nbs.setter
+    def nbs(self, value: NBState) -> None:
+        self._carry(dataclasses.replace(self._carried(), nbs=value))
+
+
 def _pulsewidth(geo: Geometry) -> int:
     if not geo.second_fft_enable:
         return 2
     return BlankerTables.create(geo, "cpu")[1]
 
 
-class Receiver:
+class Receiver(GraphedReceiver):
     # RF-dial frequency control (the freq_control.c graph: hardware
     # frequency = passband centre + converter offset, with optional
     # spectrum inversion).  center_frequency_hz is the recording's RF
@@ -120,13 +303,19 @@ class Receiver:
     center_frequency_hz: float = 0.0
 
     def __init__(self, params: RxParams, calibration: dict | None = None,
-                 audio_out_rate: float | None = None, *, device="cuda"):
+                 audio_out_rate: float | None = None, *, device="cuda",
+                 graphed: bool | None = None, recorded=None):
         """calibration: optional {'filtercorr': ..., 'iq_corr': ...} (from
         :mod:`..calibration`).  device: where tables, state and every step
         live ("cuda", "cuda:1", "cpu"); the default needs a CUDA device.
         audio_out_rate: resample the audio to this rate (the rx_output
         D/A resampler, rxout.c:266); it must give an integer output count
-        per step (exact rational, ops/resample.py)."""
+        per step (exact rational, ops/resample.py).  graphed: replay the
+        step from CUDA graphs, one per tuning structure, captured here
+        (None: on a CUDA device; see the module's docstring).  recorded:
+        a running count of kernel calls recorded into CUDA graphs, for
+        ``kernel_launches``."""
+        self.graphs = {}
         self.device = resolve_device(device)
         self.params = params
         self.geo: Geometry = derive_geometry(params)
@@ -177,6 +366,16 @@ class Receiver:
         #   "tune": fn(receiver, freq_hz)     on retune
         self.hooks: dict[str, list] = {"init": [], "extra_fast": [],
                                        "block": [], "tune": []}
+        self.graphed = graph_wanted(self.device, graphed)
+        if self.graphed:
+            self._capture_graphs(
+                {name: (self._step, _tuning_args(shapes, self.device))
+                 for name, shapes in tuning_structures(params,
+                                                       self.geo).items()},
+                self._tables, self._state,
+                (_block_rows(self.geo), self.geo.channels),
+                _block_dtype(self.geo), recorded)
+            self._state = None
 
     def add_hook(self, event: str, fn) -> None:
         """Register a user hook (users_*.c extension API analog)."""
@@ -250,9 +449,9 @@ class Receiver:
         (2*samples_per_step, C) float32 in real-input mode; a numpy array
         or a tensor on any device."""
         block = _as_block(block, self.geo, self.device)
-        self.state, out = self._step(self.tables, self.state, block,
-                                     self._tune_bin, self._tune_frac,
-                                     self._tune_slope)
+        out = self._advance(block)
+        if self.graphs:
+            out = _owned(out)
         if self._resampler is not None:
             self._resampler_state, resampled = self._resampler(
                 self._resampler_state, out.audio)
@@ -264,6 +463,18 @@ class Receiver:
             tune_slope=self._tune_slope)
         self._fire("block", out)
         return out
+
+    def _advance(self, block: torch.Tensor) -> RxOutputs:
+        """The step on a block already on the device, from the current
+        state and tuning; the state moves on, nothing else runs.  When
+        graphed, the outputs are the graph's, overwritten by its next
+        replay."""
+        tune = (self._tune_bin, self._tune_frac, self._tune_slope)
+        if not self.graphs:
+            self.state, out = self._step(self.tables, self.state, block,
+                                         *tune)
+            return out
+        return self._graph_for(tune)(block)
 
     def run(self, iq: np.ndarray, *, transport: Transport | None = None,
             pace: bool = False, watchdog=None, monitor=None):
@@ -395,15 +606,19 @@ class Receiver:
         }
 
 
-class MultiReceiver:
+class MultiReceiver(PairedState, GraphedReceiver):
     """K independently tuned sub-receivers over ONE wideband front end
     (the reference's MIX1_NO_OF_CHANNELS=24 mix1 slots and network userx
     consumers, globdef.h:315, 1282-1294).  The narrowband tail runs once
     on tensors with a leading K axis, so K sub-receivers cost one set of
-    device operations, not K."""
+    device operations, not K.  On a CUDA device the step replays from one
+    CUDA graph (``graphed``, ``recorded`` as for :class:`Receiver`); its
+    carried state is the pair (``state``, ``nbs``)."""
 
     def __init__(self, params: RxParams, n_subch: int,
-                 calibration: dict | None = None, *, device="cuda"):
+                 calibration: dict | None = None, *, device="cuda",
+                 graphed: bool | None = None, recorded=None):
+        self.graphs = {}
         self.device = resolve_device(device)
         self.params = params
         self.n_subch = n_subch
@@ -412,16 +627,26 @@ class MultiReceiver:
                                       calibration)
         fir = self.tables.mix2.fir
         fir_len = int(fir.shape[0]) if fir is not None else 0
-        self.state = RxState.create(self.geo, self.device,
-                                    spur=params.spur_enable, fir_len=fir_len)
-        self.nbs = NBState.create_stacked(
-            self.geo, n_subch, self.device, pol=params.pol_adapt_enable,
-            fir_len=fir_len)
+        self._state = MultiState(
+            rx=RxState.create(self.geo, self.device,
+                              spur=params.spur_enable, fir_len=fir_len),
+            nbs=NBState.create_stacked(
+                self.geo, n_subch, self.device, pol=params.pol_adapt_enable,
+                fir_len=fir_len))
         self.blanker_pulsewidth = _pulsewidth(self.geo)
-        self._step = make_multi_rx_step(
-            self.geo, params, blanker_pulsewidth=self.blanker_pulsewidth)
+        self._step = pair_step(make_multi_rx_step(
+            self.geo, params, blanker_pulsewidth=self.blanker_pulsewidth))
         self._tune_bins = torch.zeros(n_subch, dtype=torch.int64,
                                       device=self.device)
+        self.graphed = graph_wanted(self.device, graphed)
+        if self.graphed:
+            # the graph reads the tuning where it is: tune_subch writes
+            # into it
+            self._capture_graphs({"bins": (self._step, (self._tune_bins,))},
+                                 self._tables, self._state,
+                                 (_block_rows(self.geo), self.geo.channels),
+                                 _block_dtype(self.geo), recorded)
+            self._state = None
 
     def tune_subch(self, k: int, freq_hz: float) -> None:
         """Tune sub-receiver k (quantised to an fftx bin); retuning any
@@ -433,9 +658,11 @@ class MultiReceiver:
     def process_block(self, block) -> RxOutputs:
         """One step; outputs.audio/baseb/agc_gain have shape (K, S, C)."""
         block = _as_block(block, self.geo, self.device)
-        (self.state, self.nbs), out = self._step(
-            self.tables, self.state, self.nbs, block, self._tune_bins)
-        return out
+        if not self.graphs:
+            self._state, out = self._step(self.tables, self._state, block,
+                                          self._tune_bins)
+            return out
+        return _owned(self._graph_for((self._tune_bins,))(block))
 
     def run(self, iq: np.ndarray):
         """Stream a recording; yields RxOutputs per step."""

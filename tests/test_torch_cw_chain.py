@@ -18,7 +18,14 @@ width of the repository's two weak-signal decode checks.
   from both packages' audio alike.
 
 Bars: baseb 1e-4 (every float field but audio, as tests/
-test_torch_chain.py holds them); audio 2.3e-4, the chain's.  The BFO's
+test_torch_chain.py holds them); audio 2.3e-4, the chain's, in every step
+but, in the qualification, the step after which the AFC first reports
+status 2: there the coherent detector's smoothed carrier, which rotates
+with the drift the AFC has not yet taken out, passes within 1.8e-4 of
+zero (0.2% of its median), its unit phasor is ill-conditioned, and two
+correct float32 evaluations differ by 2.6e-4 in one audio sample; that
+step is held to 1e-3 (ROADMAP.md, queue 3, "Held at a looser bar").  The
+BFO's
 phase argument reaches 3,000 rad over a step of 4,096 baseband samples,
 where one float32 step is 2.4e-4 rad: the port rounds phase + dphi*n
 once, as XLA's fused multiply-add does (ops/demod.py:bfo_ssb); rounded
@@ -42,6 +49,7 @@ from linrad_tpu_torch.weak.cw import decode_morse, decode_morse_ml, keyed_cw
 
 BASEB_BAR = 1e-4
 AUDIO_BAR = 2.3e-4
+LOCK_STEP_AUDIO_BAR = 1e-3
 
 
 def _max_rel(a, b) -> float:
@@ -90,8 +98,11 @@ def test_qualification_decodes_at_minus_2db():
 
     jo, to, status = _both(jp, iq, fc)
     assert all(a == b for a, b in status), status
+    lock = [j for j, _ in status].index(2)
     for i, (j, t) in enumerate(zip(jo, to)):
         assert _max_rel(t.baseb, j.baseb) <= BASEB_BAR, i
+        bar = LOCK_STEP_AUDIO_BAR if i == lock else AUDIO_BAR
+        assert _max_rel(t.audio, j.audio) <= bar, i
     bb = np.concatenate([to_numpy(o.baseb) for o in to])[:, 0]
     assert decode_morse_ml(bb, geo.baseband_sampling_speed).text == msg
 
