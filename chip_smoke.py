@@ -9,8 +9,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build    build the fused fft1 kernel from linrad_tpu_torch/csrc/ with
             nvcc (sm_90a) and print the build seconds.
 3. kernel   fused_fft1 (kernel) against fused_fft1_reference (plain
-            PyTorch) on the card at eight shapes, the flagship's and the
-            EME path's among them, and three that reach the kernel's
+            PyTorch) on the card at eleven shapes, the flagship's, the
+            EME path's and the HSMS and NCW presets' among them, and
+            three that reach the kernel's
             other ways (several frames a block with a ragged end, more
             than two channels); max_rel <= 1e-5 for spectrum and power
             sum; two runs on the same input give the same bits.  Times per
@@ -189,6 +190,36 @@ Phases, in order; any failure raises and the script exits non-zero:
             MultiReceiver at K = 1 and K = 24; capture seconds and graph
             pool bytes per structure; host reads per step.
 
+22. presets the nine Linrad modes, preset(RxMode.X) at its published
+            width (WCW fft1 8192 with the AFC, NCW 4096, HSMS 512 with
+            16,384 samples a step, SSB, FM, AM, TXTEST and RADAR 2048,
+            QRSS 16384 with fft2 131072 and the AFC), each on the input
+            that fits its mode (linrad_tpu_torch/io/modeinput.py), the
+            dial between two fft1 bins, 3 steps (5 with the AFC: it
+            acquires after the 4th, and the 5th runs the per-frame
+            structure's graph), through the Receiver a user makes: the
+            graphed run bit-equal to graphed=False; against the same
+            run on the CPU to the parity bars of ROADMAP (counts, liminfo
+            signs and the AFC status per step exact; step 0's audio and
+            agc_gain, the pipeline's fill left out, to 5e-3); where fft1
+            is at most 4,096 points, fft1_variant="pallas" (one kernel
+            launch per replay) against the preset's torch.fft run to
+            phase 4's bars.  Then, after a profiler pass and an eager
+            loop, ms per step and complex Msamples/s graphed and eager in
+            turns, device kernels per step of both, capture seconds and
+            graph pools; a table of the nine.
+23. radar mode  preset(RADAR) with the fused fft1: its receiver's
+            front end (weak/radar.py:RadarFront: fft1, the frames' power
+            and frame_pulse_stats, one CUDA graph per step) feeds a
+            RadarTracker on the card over 20 steps of a pulse train every
+            40 frames with a doppler-shifted echo 8 frames later: the
+            graph bit-equal to the eager front in every step, a tracker
+            fed the card's power as a tensor (its own statistics on the
+            card) deciding the same, lock, pulse separation and echo
+            range equal to the CPU run's; one kernel launch per replay.
+            Then ms per step of the graphed and the eager front in
+            turns, kernels per replay and per display update.
+
 Every phase makes its receivers as a user would, so on the card they
 replay graphs; the phases count the kernel's launches from the replays
 (the kernel calls recorded in each graph times its replays, through
@@ -205,10 +236,10 @@ after an eager loop).
 It prints the whole run's seconds, a JSON line describing every kernel
 of the paths (launches summed over the flagship, EME, multi-receiver,
 real-input, batch, checkpoint, file, rounds, mxu, calibration, fleet, CW
-decode, phase 20's single-device and fleet runs and phase 21's graphed
-receivers, each counted from zero; times at the flagship's shape, and
-per shape under "by_shape"), then, as the last line, {"ok": true,
-"device": {...}}.
+decode, phase 20's single-device and fleet runs, phase 21's graphed
+receivers, phase 22's "pallas" presets and phase 23's radar front, each
+counted from zero; times at the flagship's shape, and per shape under
+"by_shape"), then, as the last line, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -229,6 +260,8 @@ import torch
 STEPS = 8
 KERNEL_SHAPES = [(3, 128, 1), (40, 512, 2), (64, 2048, 1), (2048, 2048, 1),
                  (64, 4096, 2),
+                 # the HSMS and NCW presets with "pallas"
+                 (64, 512, 1), (64, 4096, 1),
                  # the fleet's eight flagship streams folded into channels
                  (64, 2048, 8),
                  # the kernel's other ways: three frames a block with a
@@ -322,6 +355,21 @@ LOOPBACK = "127.0.0.1"
 # dial and steps, as tests/test_torch_sharded.py's "afc-coherent"
 AFC_SHARD_HZ = 10_000.0
 AFC_SHARD_STEPS = 7
+PRESET_DIAL_HZ = 10_000.0     # between two fft1 bins in every preset
+PRESET_STEPS = 3
+PRESET_AFC_STEPS = 5          # the AFC acquires after the 4th step
+PRESET_TIME_STEPS = 4
+# card against CPU: the parity bars of ROADMAP
+PRESET_TOL = {"audio": 2.3e-4, "fft2_power": 1e-6, "liminfo": 1e-5}
+PRESET_START_TOL = 5e-3       # step 0's AGC start-up (ROADMAP queue 3)
+PRESET_START_S = 0.2
+PRESET_FILL_LEVEL = 1e-3
+PALLAS_MAX_N = 4096           # the largest fft1 the fused kernel takes
+RADAR_MODE_STEPS = 20         # 1,280 frames: the lock after 500, 32 pulses
+RADAR_TIME_STEPS = 8
+RADAR_UPDATES = 64            # display updates timed together
+RADAR_TX_BIN, RADAR_SEP, RADAR_WIDTH, RADAR_DELAY = 100, 40, 3, 8
+RADAR_DOPPLER = 5
 
 
 def max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -3051,6 +3099,356 @@ def phase_graphed_timing(dev: dict, flag, eme, eme_eager, iqe: np.ndarray,
             graph_report(rx, f"multi K={k} (timing)", dev)
 
 
+# ---- this slice: every Linrad mode on the card, phases 22 and 23 -------
+
+def preset_startup(ref0, geo) -> tuple[int, int]:
+    """(fill, head) in step 0's baseband samples of a reference run: the
+    pipeline's fill (the baseband under PRESET_FILL_LEVEL of the step's
+    maximum: roundoff, which the AGC takes to full scale on both sides,
+    left out), then the AGC's start-up, PRESET_START_S seconds."""
+    bb = ref0.baseb.detach().abs().amax(dim=-1).cpu()
+    fill = int(torch.nonzero(bb >= PRESET_FILL_LEVEL * bb.max())[0])
+    return fill, fill + int(PRESET_START_S * geo.baseband_sampling_speed)
+
+
+def compare_presets(outs: list, ref: list, geo, label: str, what: str,
+                    tol: dict) -> dict:
+    """A preset's run against a reference run: blanker counts and the
+    liminfo sign pattern exact; every float field of every step within
+    ``tol`` (CHAIN_TOL_OTHER for a field it does not name), but step 0's
+    audio and agc_gain, held to PRESET_START_TOL with the pipeline's fill
+    left out (ROADMAP queue 3: the AGC's start-up, and in FM the
+    discriminator's output on the fill's roundoff, which the AGC's peak
+    hold keeps through the step); their start-up and the rest of the step
+    are printed apart.  Returns the worst max_rel per field."""
+    fill, head = preset_startup(ref[0], geo)
+    worst, failed = {}, []
+
+    def note(k: str, e: float, bar: float, i: int) -> None:
+        worst[k] = max(worst.get(k, 0.0), e)
+        if e > bar:
+            failed.append(f"step {i} {k}: max_rel {e} > {bar}")
+
+    for i, (a, b) in enumerate(zip(outs, ref)):
+        for f in dataclasses.fields(a):
+            k = f.name
+            va, vb = getattr(a, k), getattr(b, k)
+            if (va is None) != (vb is None):
+                failed.append(f"step {i} {k}: present on one side only")
+            if va is None or vb is None:
+                continue
+            va, vb = va.detach().cpu(), vb.detach().cpu()
+            if k in ("blanker_fitted", "blanker_cleared"):
+                if int(va) != int(vb):
+                    failed.append(f"step {i} {k}: {int(va)} != {int(vb)}")
+                continue
+            if k == "liminfo" and not torch.equal(torch.sign(va),
+                                                  torch.sign(vb)):
+                failed.append(f"step {i}: liminfo sign pattern differs")
+            if i == 0 and k in ("audio", "agc_gain"):
+                note(f"{k} start-up", max_rel(va[fill:head], vb[fill:head]),
+                     PRESET_START_TOL, i)
+                if head < va.shape[0]:
+                    note(f"{k} rest of step 0", max_rel(va[head:], vb[head:]),
+                         PRESET_START_TOL, i)
+                continue
+            note(k, max_rel(va, vb), tol.get(k, CHAIN_TOL_OTHER), i)
+    print(f"{label}{what}: " + ", ".join(f"{k} {v:.2e}"
+                                         for k, v in worst.items())
+          + f"; counts and liminfo signs exact (bars {tol}, others "
+          f"{CHAIN_TOL_OTHER}; step 0's audio and agc_gain "
+          f"{PRESET_START_TOL}, the start-up samples {fill}-{head}, the "
+          f"{fill} before it left out)")
+    if failed:
+        raise AssertionError(f"{label}{what}: " + "; ".join(failed))
+    return worst
+
+
+def run_preset(p, iq: np.ndarray, device, graphed, steps: int) -> tuple:
+    """A Receiver of ``p`` on ``device`` tuned to PRESET_DIAL_HZ over the
+    first ``steps`` steps of iq: (receiver, outputs, AFC status per
+    step)."""
+    from linrad_tpu_torch.pipeline.receiver import Receiver
+    rx = Receiver(p, device=device, graphed=graphed, recorded=recorded_fft1)
+    rx.tune(PRESET_DIAL_HZ)
+    s = rx.geo.samples_per_step
+    outs, status = [], []
+    for i in range(steps):
+        outs.append(rx.process_block(iq[i * s:(i + 1) * s]))
+        status.append(rx.afc.status if rx.afc else None)
+    if rx.device.type == "cuda":
+        torch.cuda.synchronize()
+    return rx, outs, status
+
+
+def phase_presets(dev: dict, device="cuda", modes=None) -> int:
+    """Phase 22: the nine presets at their published widths, each on the
+    input that fits its mode (io/modeinput.py), through the Receiver a
+    user makes (graphed on a card).  Returns the kernel's launches over
+    the graphed "pallas" runs.  ``device="cpu"`` with a few ``modes``
+    rehearses the control flow (graphed=True runs the graphs' bodies
+    eagerly; no timing)."""
+    from linrad_tpu_torch import RxMode, derive_geometry, preset
+    from linrad_tpu_torch.io.modeinput import mode_input
+    t0 = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    graphed = None if on_card else True
+    launches, table = 0, []
+    for mode in modes or list(RxMode):
+        mode = RxMode[mode] if isinstance(mode, str) else RxMode(mode)
+        label = f"presets {mode.name}: "
+        p = preset(mode)
+        geo = derive_geometry(p)
+        steps = PRESET_AFC_STEPS if p.afc_enable else PRESET_STEPS
+        iq = mode_input(mode, geo, steps + PRESET_TIME_STEPS, PRESET_DIAL_HZ)
+        g, g_outs, g_status = run_preset(p, iq, device, graphed, steps)
+        e, e_outs, e_status = run_preset(p, iq, device, False, steps)
+        same_outputs(g_outs, e_outs, f"{label}graph against eager")
+        if g_status != e_status:
+            raise AssertionError(f"{label}AFC {g_status} != {e_status}")
+        print(f"{label}fft1 {geo.fft1_size}, fft2 "
+              f"{geo.fft2_size if geo.second_fft_enable else None}, "
+              f"{geo.samples_per_step} samples and "
+              f"{geo.baseband_samples_per_step} baseband samples at "
+              f"{geo.baseband_sampling_speed:g} Hz a step, demod "
+              f"{p.demod.name}; {steps} steps graphed "
+              f"({', '.join(f'{n} {x.replays}' for n, x in g.graphs.items())}"
+              f" replays) bit-equal to graphed=False; AFC status per step "
+              f"{g_status}")
+        _, c_outs, c_status = run_preset(p, iq, "cpu", False, steps)
+        if c_status != g_status:
+            raise AssertionError(f"{label}AFC on the CPU {c_status} != "
+                                 f"{g_status}")
+        compare_presets(g_outs, c_outs, geo, label,
+                        f"{device} against the CPU", PRESET_TOL)
+        if p.afc_enable and (g_status[-1] not in (2, 3)
+                             or g.graphs["coherent"].replays < 1):
+            raise AssertionError(f"{label}the AFC did not take the "
+                                 f"per-frame tuning")
+        if geo.fft1_size <= PALLAS_MAX_N:
+            pp = dataclasses.replace(p, fft1_variant="pallas")
+            k, k_outs, _ = run_preset(pp, iq, device, graphed, steps)
+            _, ke_outs, _ = run_preset(pp, iq, device, False, steps)
+            same_outputs(k_outs, ke_outs, f"{label}pallas graph against "
+                                          f"eager")
+            compare_presets(k_outs, g_outs, geo, label,
+                            " pallas against torch.fft", CHAIN_TOL)
+            shape = (geo.fft1_frames_per_step, geo.fft1_size, geo.channels)
+            print(f"{label}pallas: fused_fft1 at {shape}, "
+                  f"{k.kernels_per_replay} node per replay, launches "
+                  f"{k.kernel_launches} in {steps} steps")
+            if on_card and (k.kernels_per_replay != 1
+                            or k.kernel_launches != steps):
+                raise AssertionError(f"{label}pallas: expected one kernel "
+                                     f"launch per step")
+            launches += k.kernel_launches
+            graph_report(k, f"{mode.name} pallas", dev)
+        if on_card:
+            table.append(preset_timing(dev, mode.name, g, e, iq, steps))
+        graph_report(g, mode.name, dev)
+    for row in table:
+        print("presets table: " + row)
+    print(f"presets: phase 22 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def preset_timing(dev: dict, name: str, g, e, iq: np.ndarray,
+                  first: int) -> str:
+    """ms per step of a preset's graphed and eager Receiver in turns, whole
+    process_block loops on device input (the AFC's read and the control
+    included) after the warm-up that ends in the fast replay regime (a
+    profiler pass over the graphed steps, then an eager loop); kernels
+    per step of both from torch.profiler."""
+    s = g.geo.samples_per_step
+    blocks = [torch.from_numpy(iq[i * s:(i + 1) * s]).cuda()
+              for i in range(first, first + PRESET_TIME_STEPS)]
+
+    def loop(rx):
+        def fn():
+            for b in blocks:
+                rx.process_block(b)
+        return fn
+
+    n = PRESET_TIME_STEPS
+    prof = profile_call(loop(g))
+    prof_e = profile_call(loop(e))
+    times: dict = {}
+    for which in ("graphed", "eager", "eager", "graphed"):
+        ms = timed_ms(loop(g if which == "graphed" else e)) / n
+        times.setdefault(which, []).append(ms)
+        print(f"presets timing {name} {which}: {ms:.3f} ms/step (CUDA "
+              f"events around {n} steps), {s / ms / 1e3:.3f} complex "
+              f"Msamples/s [{dev['smi']}]")
+    gk, ek = prof["ops"] / n, prof_e["ops"] / n
+    print(f"presets timing {name}: device kernels and copies per step "
+          f"(torch.profiler) graphed {gk:.0f}, eager {ek:.0f}; device time "
+          f"per graphed step {prof['busy_ms'] / n:.3f} ms in "
+          f"{prof['wall_ms'] / n:.3f} ms of wall; eager / graphed "
+          f"{sum(times['eager']) / sum(times['graphed']):.2f}")
+    gr, er = times["graphed"], times["eager"]
+    return (f"{name}: graphed {min(gr):.3f}-{max(gr):.3f} ms/step "
+            f"({s / max(gr) / 1e3:.3f}-{s / min(gr) / 1e3:.3f} Msamples/s), "
+            f"eager {min(er):.3f}-{max(er):.3f} ms/step "
+            f"({s / max(er) / 1e3:.3f}-{s / min(er) / 1e3:.3f}), kernels "
+            f"per step graphed {gk:.0f}, eager {ek:.0f} [{dev['smi']}]")
+
+
+def radar_mode_fronts(p, iq: np.ndarray, steps: int, device, graphed,
+                      recorded=None) -> tuple:
+    """preset(RADAR)'s receiver on ``device`` and its radar front end
+    feeding a tracker over ``steps`` steps of iq: (front, tracker, the
+    front's outputs per step)."""
+    from linrad_tpu_torch.pipeline.receiver import Receiver
+    from linrad_tpu_torch.weak.radar import (RadarFront, RadarParams,
+                                             RadarTracker)
+    rx = Receiver(p, device=device, graphed=False)
+    geo = rx.geo
+    front = RadarFront.of_receiver(rx, graphed=graphed, recorded=recorded)
+    tracker = RadarTracker(
+        n_bins=geo.fft1_size,
+        frame_time_s=geo.fft1_new_points / geo.timf1_sampling_speed,
+        bin_hz=geo.timf1_sampling_speed / geo.fft1_size,
+        params=RadarParams(time=2.0, lock_after=500), device=device)
+    s = geo.samples_per_step
+    outs = []
+    for i in range(steps):
+        out = front(iq[i * s:(i + 1) * s])
+        tracker.feed(out[0], stats=out[1:])
+        outs.append(out)
+    return front, tracker, outs
+
+
+def tracker_view(t) -> tuple:
+    return (t.locked, t.pulse_sep, t.pulse_bin, t.lines, t.first_bin,
+            t.last_bin, t.update_cnt, t.echo_peak())
+
+
+def phase_radar_mode(dev: dict, device="cuda") -> int:
+    """Phase 23: the RADAR mode's own device path.  preset(RADAR) with the
+    fused fft1; its receiver's front end (RadarFront: fft1, the frames'
+    power and frame_pulse_stats, one CUDA graph per step) feeds a
+    RadarTracker on the card over RADAR_MODE_STEPS steps of a pulse train
+    with its echo.  Held: the graph against the eager front, every output
+    bit for bit; a tracker fed the eager front's power alone (its own
+    frame_pulse_stats on the card) decides the same; lock, pulse
+    separation and echo range equal to the same run on the CPU; one kernel
+    launch per replay.  Then ms per step of the graphed and eager front in
+    turns, the kernels of a replay and of one display update
+    (``_accumulate``, kept eager).  Returns the graphed front's launches
+    over the RADAR_MODE_STEPS steps."""
+    from linrad_tpu_torch import RxMode, derive_geometry, preset
+    from linrad_tpu_torch.io.modeinput import radar_iq
+    from linrad_tpu_torch.ops.fused_fft1 import fused_fft1
+    from linrad_tpu_torch.weak.radar import RadarTracker, _accumulate
+    t0 = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    p = preset(RxMode.RADAR, fft1_variant="pallas")
+    geo = derive_geometry(p)
+    iq = radar_iq(geo, RADAR_MODE_STEPS + RADAR_TIME_STEPS,
+                  tx_bin=RADAR_TX_BIN, pulse_sep=RADAR_SEP,
+                  pulse_width=RADAR_WIDTH, echo_delay=RADAR_DELAY,
+                  doppler_bins=RADAR_DOPPLER)[:, None]
+    n = RADAR_MODE_STEPS
+    front, tg, g_outs = radar_mode_fronts(p, iq, n, device,
+                                          None if on_card else True,
+                                          recorded_fft1)
+    wrapper = fused_fft1.launches
+    eager, te, e_outs = radar_mode_fronts(p, iq, n, device, False)
+    wrapper = fused_fft1.launches - wrapper
+    for i, (a, b) in enumerate(zip(g_outs, e_outs)):
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"radar mode step {i}: the graph's power "
+                                 f"or statistics differ from the eager "
+                                 f"front's")
+    own = RadarTracker(n_bins=tg.n_bins, frame_time_s=tg.frame_time_s,
+                       bin_hz=tg.bin_hz, params=tg.params, device=device)
+    for out in e_outs:
+        own.feed(out[0])            # a CUDA tensor, statistics of its own
+    _, tc, c_outs = radar_mode_fronts(p, iq, n, "cpu", False)
+    views = [tracker_view(t) for t in (tg, te, own, tc)]
+    rel_pw = max(max_rel(a[0].cpu(), b[0]) for a, b in zip(g_outs, c_outs))
+    rel_avg = max_rel(torch.from_numpy(tg.average),
+                      torch.from_numpy(tc.average))
+    line, off, dopp = tg.echo_peak()
+    print(f"radar mode: preset(RADAR) with the fused fft1 at "
+          f"({geo.fft1_frames_per_step}, {geo.fft1_size}, {geo.channels}), "
+          f"{n} steps of a pulse train every {RADAR_SEP} frames with its "
+          f"echo {RADAR_DELAY} frames later, {RADAR_DOPPLER} bins off: "
+          f"graph bit-equal to the eager front in every step; tracker "
+          f"locked {tg.locked}, pulse_sep {tg.pulse_sep}, pulse_bin "
+          f"{tg.pulse_bin}, {tg.update_cnt} display updates, echo line "
+          f"{line}, bin offset {off}, doppler {dopp} Hz, range "
+          f"{tg.line_to_range_m(line):.0f} m; the same on the eager front, "
+          f"on the card's power fed as a tensor and on the CPU; power "
+          f"max_rel against the CPU {rel_pw:.2e}, display {rel_avg:.2e}")
+    if len(set(views)) != 1 or not tg.locked or tg.pulse_sep != RADAR_SEP \
+            or tg.pulse_bin != RADAR_TX_BIN or abs(line - RADAR_DELAY) > 1 \
+            or off != RADAR_DOPPLER:
+        raise AssertionError(f"radar mode: the trackers decided {views}")
+    if rel_pw > 1e-5 or rel_avg > 1e-5:
+        raise AssertionError("radar mode: power or display off the CPU's")
+    print(f"radar mode: fused_fft1 {front.graph.kernels} node per replay, "
+          f"launches {front.kernel_launches} in {n} replays; the eager "
+          f"front's wrapper calls {wrapper}")
+    launches = front.kernel_launches
+    if on_card and (front.graph.kernels != 1 or launches != n
+                    or wrapper != n):
+        raise AssertionError("radar mode: expected one kernel launch per "
+                             "step")
+    if on_card:
+        s = geo.samples_per_step
+        blocks = [torch.from_numpy(iq[i * s:(i + 1) * s]).cuda()
+                  for i in range(n, n + RADAR_TIME_STEPS)]
+
+        def loop(f):
+            def fn():
+                for b in blocks:
+                    f(b)
+            return fn
+
+        prof = profile_call(loop(front))
+        prof_e = profile_call(loop(eager))
+        times: dict = {}
+        for which in ("graphed", "eager", "eager", "graphed"):
+            ms = timed_ms(loop(front if which == "graphed" else eager)) \
+                / RADAR_TIME_STEPS
+            times.setdefault(which, []).append(ms)
+            print(f"radar mode timing {which}: {ms:.3f} ms/step (CUDA "
+                  f"events around {RADAR_TIME_STEPS} steps), "
+                  f"{s / ms / 1e3:.3f} complex Msamples/s [{dev['smi']}]")
+        hist = torch.from_numpy(np.concatenate(tg._hist_pw)).cuda()
+        avg = tg._avg.clone()
+
+        def updates():
+            for _ in range(RADAR_UPDATES):
+                _accumulate(avg, hist, 0, tg.decayfac, tg.lines,
+                            tg.first_bin, tg.last_bin)
+
+        updates()
+        acc = profile_call(updates)
+        acc_ms = timed_ms(updates) / RADAR_UPDATES
+        print(f"radar mode timing: device kernels and copies per step "
+              f"(torch.profiler) graphed {prof['ops'] / RADAR_TIME_STEPS:.0f}"
+              f" (the front's replay and its output copies) in "
+              f"{prof['busy_ms'] / RADAR_TIME_STEPS:.3f} ms of device time, "
+              f"eager {prof_e['ops'] / RADAR_TIME_STEPS:.0f}; one display update "
+              f"(_accumulate, eager) {acc['ops'] / RADAR_UPDATES:g} "
+              f"kernel(s), {acc['busy_ms'] / RADAR_UPDATES:.4f} ms of device "
+              f"time, {acc_ms:.4f} ms between CUDA events (over "
+              f"{RADAR_UPDATES} updates); eager / graphed "
+              f"{sum(times['eager']) / sum(times['graphed']):.2f} "
+              f"[{dev['smi']}]")
+        graph_report_one(front.graph, "radar mode", dev)
+    print(f"radar mode: phase 23 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def graph_report_one(graph, label: str, dev: dict) -> None:
+    print(f"graphed {label}: {graph.replays} replays, {graph.kernels} "
+          f"fused_fft1 node(s), capture {graph.capture_seconds:.3f} s, graph "
+          f"pool {graph_pool_bytes(graph.graph)} bytes [{dev['smi']}]")
+
+
 # stage functions of pipeline/chain.py: (module attribute of chain, name)
 STAGES = [(None, "fft1_step"), ("sellim_ops", "update_liminfo"),
           ("sellim_ops", "liminfo_gains"), (None, "timf2_step"),
@@ -3160,6 +3558,8 @@ def main() -> None:
     launches += phase_weak(dev)
     launches += phase_sharded(dev)
     launches += phase_graphed(dev)
+    launches += phase_presets(dev)
+    launches += phase_radar_mode(dev)
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} "
           f"s [{dev['smi']}]")
     print(json.dumps({"kernels": [{

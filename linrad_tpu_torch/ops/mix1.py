@@ -19,6 +19,7 @@ import torch
 from scipy.special import erfc
 
 from ..geometry import Geometry
+from ..utils.fporder import ordered_cumsum, ordered_sum
 from .framing import overlap_add
 from .windows import synthesis_weights
 
@@ -147,7 +148,15 @@ def frac_ramp(geo: Geometry, frac_phase: torch.Tensor,
     midpoint, slope its change per hop.
 
     frac_phase (...,); tune_frac and tune_slope () or (..., n).  Returns
-    (complex64 ramp (..., n*mix1_new_points), final phase in turns)."""
+    (complex64 ramp (..., n*mix1_new_points), final phase in turns).
+
+    The phase is a float32 prefix sum over the step, and its rounding
+    reaches the baseband amplified: mix2 divides by the mix1 window, which
+    is small at the band edges, and the rounding is white across the band.
+    So the sums are taken in the JAX package's order (XLA's CPU order,
+    :mod:`..utils.fporder`): in torch's own order the baseband of a 3 kHz
+    preset with the dial between bins differed from JAX's by 2.4e-4, as
+    far as either is from a float64 ramp."""
     m = geo.mix1_size
     hop_m = geo.mix1_new_points
     lead = tuple(frac_phase.shape)
@@ -157,9 +166,12 @@ def frac_ramp(geo: Geometry, frac_phase: torch.Tensor,
         sl = torch.broadcast_to(tune_slope.to(torch.float32), lead + (n,))
         pos = (torch.arange(hop_m, dtype=torch.float32, device=fr.device)
                + 0.5) / hop_m - 0.5                   # (-0.5, 0.5)
-        per_samp = per_samp + torch.repeat_interleave(sl / m, hop_m, dim=-1) \
-            * pos.repeat(n)
-    cum = frac_phase[..., None] + torch.cumsum(per_samp, -1) - per_samp
+        # XLA's CPU backend contracts this multiply-add into one fused
+        # multiply-add, rounded once: formed in float64, rounded once
+        per_samp = (per_samp.double() + torch.repeat_interleave(
+            sl / m, hop_m, dim=-1).double() * pos.repeat(n).double()
+            ).float()
+    cum = frac_phase[..., None] + ordered_cumsum(per_samp) - per_samp
     theta = (-2.0 * math.pi) * torch.remainder(cum, 1.0)
     ramp = torch.complex(torch.cos(theta), torch.sin(theta))
-    return ramp, torch.remainder(frac_phase + per_samp.sum(-1), 1.0)
+    return ramp, torch.remainder(frac_phase + ordered_sum(per_samp), 1.0)

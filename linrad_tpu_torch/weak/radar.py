@@ -16,6 +16,15 @@ scalars, mirroring the reference's control thread.  The display
 accumulation is a decayed add of a slice of the frame history, on the
 device.  :class:`RadarTracker` is host numpy around those two functions,
 this package's copy of the JAX package's class.
+
+The JAX package jits ``frame_pulse_stats`` and ``_accumulate``.  Here
+:class:`RadarFront` is the radar mode's device path for one block shape,
+fft1 (the fused kernel with ``variant="pallas"``), the power and the
+per-frame statistics, replayed from one CUDA graph per step
+(:class:`..pipeline.batch.GraphedStep`): the skirt walk alone is some
+960 small kernels.  ``_accumulate`` stays an eager multiply-add of a
+slice, two kernels a display update: a graph would replay the same, with
+``start`` written to a device scalar before each replay.
 """
 
 from __future__ import annotations
@@ -24,6 +33,13 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from ..geometry import Geometry
+from ..ops.fft1 import FFT1State, FFT1Tables, fft1_step
+from ..pipeline.batch import GraphedStep
+from ..pipeline.receiver import (_block_dtype, _block_rows, graph_wanted,
+                                 resolve_device)
+from ..utils.host import to_numpy
 
 SPEED_OF_LIGHT = 299_792_458.0
 
@@ -102,6 +118,94 @@ def _accumulate(avg: torch.Tensor, frames: torch.Tensor, start: int,
     return avg * decayfac + frames[start:start + lines, first_bin:last_bin]
 
 
+def frame_power(spec: torch.Tensor) -> torch.Tensor:
+    """(frames, bins, channels) fft1 spectra -> (frames, bins) float32
+    power, summed over the channels as :meth:`RadarTracker.feed` sums."""
+    return (spec.abs() ** 2).sum(-1)
+
+
+def radar_step(geo: Geometry, avg1num: int, variant: str | None = None):
+    """One step of the radar mode's device path, ``(tables, state, block)
+    -> (state, (power, peak_bin, ston, noise_floor))``: fft1, the power of
+    each frame and its pulse statistics."""
+
+    def step(tables: FFT1Tables, state: FFT1State, block: torch.Tensor):
+        state, spec, _ = fft1_step(geo, tables, state, block, avg1num,
+                                   variant=variant)
+        power = frame_power(spec)
+        return state, (power,) + frame_pulse_stats(power)
+
+    return step
+
+
+class RadarFront:
+    """The radar mode's device path for blocks of one shape: fft1 (the
+    fused kernel with ``variant="pallas"``), each frame's power and
+    :func:`frame_pulse_stats`, replayed from one CUDA graph per step on a
+    CUDA device (``graphed=None``; ``graphed=False`` for the eager step;
+    on the CPU the step is eager unless ``graphed=True``, which runs the
+    graph's body eagerly).  The fft1 state carries from block to block.
+
+    ``recorded`` as for the receivers: a running count of kernel calls
+    recorded into CUDA graphs, read around the capture, for
+    ``kernel_launches``.  :meth:`feed` hands a block's power and
+    statistics to a :class:`RadarTracker`, which then computes nothing on
+    the device but its display."""
+
+    def __init__(self, geo: Geometry, tables: FFT1Tables, *, avg1num: int,
+                 variant: str | None = None, device="cuda",
+                 graphed: bool | None = None, recorded=None):
+        self.device = resolve_device(device)
+        self.geo = geo
+        self._step = radar_step(geo, avg1num, variant)
+        self._tables = tables
+        self._state = FFT1State.create(geo, self.device)
+        self._shape = (_block_rows(geo), geo.channels)
+        self._dtype = _block_dtype(geo)
+        self.graph = None
+        if graph_wanted(self.device, graphed):
+            self.graph = GraphedStep(self._step, tables, self._state,
+                                     self._shape, self._dtype,
+                                     recorded=recorded)
+            self._state = None
+
+    @classmethod
+    def of_receiver(cls, rx, **kw) -> "RadarFront":
+        """The radar path of a receiver's front end: its geometry, fft1
+        tables (calibration included), averaging, variant and device."""
+        kw.setdefault("device", rx.device)
+        return cls(rx.geo, rx.tables.fft1, avg1num=rx.params.fft_avg1num,
+                   variant=rx.params.fft1_variant, **kw)
+
+    @property
+    def graphed(self) -> bool:
+        return self.graph is not None
+
+    @property
+    def state(self) -> FFT1State:
+        return self.graph.state if self.graph else self._state
+
+    @property
+    def kernel_launches(self) -> int:
+        return self.graph.kernels * self.graph.replays if self.graph else 0
+
+    def __call__(self, block) -> tuple[torch.Tensor, ...]:
+        """(power (frames, bins), peak_bin, ston, noise_floor) of one block
+        ((samples_per_step, C) complex64, a tensor or a numpy array), the
+        caller's own tensors on the device."""
+        block = torch.as_tensor(block).to(device=self.device,
+                                          dtype=self._dtype)
+        block = block.reshape(self._shape)
+        if self.graph is None:
+            self._state, out = self._step(self._tables, self._state, block)
+            return out
+        return tuple(t.clone() for t in self.graph(block))
+
+    def feed(self, tracker: "RadarTracker", block) -> None:
+        power, *stats = self(block)
+        tracker.feed(power, stats=stats)
+
+
 @dataclass
 class RadarTracker:
     """The run_radar state machine (radar.c:121-520).
@@ -146,17 +250,31 @@ class RadarTracker:
         self._next_scan = 0                    # first unscanned frame
 
     # ------------------------------------------------------------------
-    def feed(self, power_frames) -> None:
-        """Consume one step's (frames, fft1_size) power spectra."""
-        pw = np.asarray(power_frames, np.float32)
-        if pw.ndim == 3:                       # (frames, bins, channels)
-            pw = pw.sum(axis=2)
-        k, ston, floor = frame_pulse_stats(
-            torch.from_numpy(pw).to(self._device))
+    def feed(self, power_frames, stats=None) -> None:
+        """Consume one step's (frames, fft1_size) power spectra, or
+        (frames, fft1_size, channels), summed over the channels.
+
+        A tensor goes to :func:`frame_pulse_stats` on its own device, a
+        numpy array to the tracker's device; the history keeps one host
+        copy.  ``stats``: the spectra's ``(peak_bin, ston, noise_floor)``
+        when the caller has them already (:meth:`RadarFront.feed`)."""
+        if isinstance(power_frames, torch.Tensor):
+            dev = power_frames.detach().to(torch.float32)
+            if dev.dim() == 3:                 # (frames, bins, channels)
+                dev = dev.sum(-1)
+            # the history's own copy: a CPU tensor's numpy view would
+            # follow the caller's later writes
+            pw = to_numpy(dev.clone() if dev.device.type == "cpu" else dev)
+        else:
+            pw = to_numpy(power_frames, np.float32)
+            if pw.ndim == 3:
+                pw = pw.sum(axis=2)
+            dev = torch.from_numpy(pw).to(self._device)
+        k, ston, floor = frame_pulse_stats(dev) if stats is None else stats
         self._hist_pw.append(pw)
-        self._bins.extend(k.cpu().tolist())
-        self._ston.extend(ston.cpu().tolist())
-        self._floor.extend(floor.cpu().tolist())
+        self._bins.extend(to_numpy(k).tolist())
+        self._ston.extend(to_numpy(ston).tolist())
+        self._floor.extend(to_numpy(floor).tolist())
         if not self.locked:
             self._try_lock()
         if self.locked:

@@ -27,6 +27,7 @@ MODULES = [
     "linrad_tpu_torch.examples.serve_rx",
     "linrad_tpu_torch.geometry",
     "linrad_tpu_torch.io.httpd",
+    "linrad_tpu_torch.io.modeinput",
     "linrad_tpu_torch.io.publish",
     "linrad_tpu_torch.io.rawfile",
     "linrad_tpu_torch.io.siggen",
@@ -69,6 +70,7 @@ MODULES = [
     "linrad_tpu_torch.tx.modulate",
     "linrad_tpu_torch.tx.ssbproc",
     "linrad_tpu_torch.tx.stream",
+    "linrad_tpu_torch.utils.fporder",
     "linrad_tpu_torch.utils.host",
     "linrad_tpu_torch.utils.llsq",
     "linrad_tpu_torch.utils.scanops",

@@ -7,7 +7,12 @@ row, taken in another order), the walk ends held to a numpy rendering of
 the reference's while-loops, and the whole RadarTracker fed the same
 frames as the JAX package's (every host decision exact, the display
 matrix to 1e-5).  Then the JAX package's own radar tests on the port
-alone, the spectra from the port's fft1_step.
+alone, the spectra from the port's fft1_step.  The radar mode's device
+path, RadarFront (fft1, the frames' power and frame_pulse_stats as one
+step, replayed from a CUDA graph on a card; graphed=True on the CPU runs
+the graph's body eagerly), bit-equal to the plain functions and against
+the JAX package's jitted functions, and feeding a tracker that locks as
+the JAX tracker does on preset(RxMode.RADAR)'s front end.
 
 WFM stereo: wfm_stereo_decode against the JAX function to 1e-4 of the
 output's maximum.  The bar is that wide because the sine's float32
@@ -22,19 +27,26 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from linrad_tpu import RxMode as JRxMode
+from linrad_tpu import preset as j_preset
 from linrad_tpu.geometry import derive_geometry as j_derive_geometry
+from linrad_tpu.ops import fft1 as jfft1
+from linrad_tpu.pipeline.receiver import Receiver as JaxReceiver
 from linrad_tpu.ops import demod as jdemod
 from linrad_tpu.params import RxParams as JaxRxParams
 from linrad_tpu.tx.keying import radar_pulse_train as j_radar_pulse_train
 from linrad_tpu.viz import radar_graph_image as j_radar_graph_image
 from linrad_tpu.weak import radar as jradar
-from linrad_tpu_torch import RxParams, derive_geometry
+from linrad_tpu_torch import RxParams, convert, derive_geometry
+from linrad_tpu_torch.io.modeinput import radar_iq
 from linrad_tpu_torch.ops import demod as tdemod
 from linrad_tpu_torch.ops.fft1 import FFT1State, FFT1Tables, fft1_step
 from linrad_tpu_torch.tx.keying import radar_pulse_train
 from linrad_tpu_torch.viz import radar_graph_image
 from linrad_tpu_torch.weak import radar as tradar
-from linrad_tpu_torch.weak.radar import (RadarParams, RadarTracker,
+from linrad_tpu_torch.pipeline.receiver import Receiver
+from linrad_tpu_torch.weak.radar import (RadarFront, RadarParams,
+                                         RadarTracker, frame_power,
                                          frame_pulse_stats)
 
 FS = 96_000
@@ -388,6 +400,170 @@ def test_radar_tracker_needs_a_cuda_device_by_default():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="cuda"):
         RadarTracker(n_bins=256, frame_time_s=0.01)
+
+
+# ---- the radar mode's device path: RadarFront ------------------------
+
+RADAR_STEPS = 20            # 1,280 frames of preset(RADAR): 32 pulses
+
+
+def _radar_mode_pair(variant=None):
+    """The JAX Receiver and the port's (CPU) of preset(RxMode.RADAR), the
+    port's tables the JAX one's."""
+    jrx = JaxReceiver(j_preset(JRxMode.RADAR, fft1_variant=variant))
+    rx = Receiver(convert.params_from_jax(jrx.params), device="cpu")
+    rx.tables = convert.tables_from_numpy(convert.flatten(jrx.tables), "cpu")
+    return jrx, rx
+
+
+def _radar_mode_iq(geo, steps, doppler=0):
+    return radar_iq(geo, steps, tx_bin=TX_BIN, pulse_sep=PULSE_SEP_FRAMES,
+                    pulse_width=PULSE_WIDTH_FRAMES,
+                    echo_delay=ECHO_DELAY_FRAMES, doppler_bins=doppler)
+
+
+def test_radar_iq_is_the_tests_input():
+    """io.modeinput.radar_iq, which chip_smoke.py's radar phase feeds, is
+    this file's _radar_iq."""
+    geo = derive_geometry(RxParams(**RADAR_KW))
+    for dop, seed in ((0, 7), (5, 9)):
+        np.testing.assert_array_equal(
+            radar_iq(geo, 3, tx_bin=TX_BIN, pulse_sep=PULSE_SEP_FRAMES,
+                     pulse_width=PULSE_WIDTH_FRAMES,
+                     echo_delay=ECHO_DELAY_FRAMES, doppler_bins=dop,
+                     seed=seed),
+            _radar_iq(geo, 3, doppler_bins=dop, seed=seed))
+
+
+@pytest.mark.parametrize("variant", ["pallas", None])
+def test_radar_front_equals_plain_and_jax(variant):
+    """RadarFront graphed (the body eagerly), RadarFront eager and the
+    plain functions give the same bits over 3 steps.  Against the JAX
+    package (its Pallas kernel in interpret mode for "pallas"): the
+    frames' power against its fft1_step's |spec|^2 within 1e-5, the peak
+    bins exact, and S/N and floor against its jitted frame_pulse_stats of
+    the same power within 1e-5.  (Of JAX's own power the transmit frames'
+    S/N differs by 1e-3: the receiver is muted then, and the floor beside
+    the pulse is the float32 transforms' roundoff.)"""
+    jrx, rx = _radar_mode_pair(variant)
+    geo, jgeo = rx.geo, jrx.geo
+    assert (geo.fft1_size, geo.fft1_frames_per_step) == (2048, 64)
+    graphed = RadarFront.of_receiver(rx, graphed=True)
+    eager = RadarFront.of_receiver(rx)
+    assert graphed.graphed and not eager.graphed
+    iq = _radar_mode_iq(geo, 3)
+    s = geo.samples_per_step
+    tstate = FFT1State.create(geo, "cpu")
+    jstate = jfft1.FFT1State.create(jgeo)
+    for i in range(3):
+        blk = iq[i * s:(i + 1) * s, None]
+        g = graphed(blk)
+        e = eager(torch.from_numpy(blk))
+        tstate, spec, _ = fft1_step(geo, rx.tables.fft1, tstate,
+                                    torch.from_numpy(blk),
+                                    rx.params.fft_avg1num, variant=variant)
+        power = frame_power(spec)
+        plain = (power,) + frame_pulse_stats(power)
+        for a, b, c in zip(g, e, plain):
+            assert torch.equal(a, b) and torch.equal(a, c)
+        jstate, jspec, _ = jfft1.fft1_step(
+            jgeo, jrx.tables.fft1, jstate, jnp.asarray(blk),
+            jrx.params.fft_avg1num, variant=variant)
+        jpow = jnp.sum(jnp.abs(jspec) ** 2, axis=-1)
+        assert _max_rel(g[0].numpy(), jpow) <= FP32
+        np.testing.assert_array_equal(
+            g[1].numpy(), np.asarray(jradar.frame_pulse_stats(jpow)[0]))
+        jk, jston, jfloor = jradar.frame_pulse_stats(jnp.asarray(g[0]))
+        np.testing.assert_array_equal(g[1].numpy(), np.asarray(jk))
+        assert _max_rel(g[2].numpy(), jston) <= FP32
+        assert _max_rel(g[3].numpy(), jfloor) <= FP32
+    assert graphed.graph.replays == 3
+    np.testing.assert_array_equal(graphed.state.tail.numpy(),
+                                  eager.state.tail.numpy())
+
+
+def test_feed_takes_a_tensor():
+    """feed takes the device's power as a tensor, (frames, bins) or
+    (frames, bins, channels): the same decisions, history and display as
+    the numpy frames; the history is the tracker's own copy."""
+    geo = derive_geometry(RxParams(**RADAR_KW))
+    frames = _port_power_frames(_radar_iq(geo, 26), 26)
+    a, b, c = _tracker(), _tracker(), _tracker()
+    for pw in frames:
+        t = torch.from_numpy(pw.copy())
+        a.feed(pw)
+        b.feed(t)
+        c.feed(t[..., 0])
+        t.fill_(-1.0)
+    for t in (b, c):
+        for name in ("locked", "pulse_sep", "pulse_bin", "lines",
+                     "update_cnt", "_bins", "_ston", "_floor"):
+            assert getattr(t, name) == getattr(a, name), name
+        np.testing.assert_array_equal(np.concatenate(t._hist_pw),
+                                      np.concatenate(a._hist_pw))
+        np.testing.assert_array_equal(t.average, a.average)
+    assert a.locked and a.update_cnt >= 8
+
+
+@pytest.fixture(scope="module", params=[0, 5], ids=["echo", "doppler"])
+def radar_mode(request):
+    """preset(RxMode.RADAR)'s front end over RADAR_STEPS steps of the
+    pulse train: the port's graphed RadarFront feeding a port tracker,
+    the JAX fft1_step and |spec|^2 feeding a JAX tracker."""
+    jrx, rx = _radar_mode_pair()
+    geo, jgeo = rx.geo, jrx.geo
+    front = RadarFront.of_receiver(rx, graphed=True)
+    kw = dict(n_bins=geo.fft1_size,
+              frame_time_s=geo.fft1_new_points / geo.timf1_sampling_speed,
+              bin_hz=geo.timf1_sampling_speed / geo.fft1_size)
+    tt = tradar.RadarTracker(params=RadarParams(time=2.0, lock_after=500),
+                             device="cpu", **kw)
+    jt = jradar.RadarTracker(
+        params=jradar.RadarParams(time=2.0, lock_after=500), **kw)
+    iq = _radar_mode_iq(geo, RADAR_STEPS, request.param)
+    s = geo.samples_per_step
+    jstate = jfft1.FFT1State.create(jgeo)
+    history = []
+    for i in range(RADAR_STEPS):
+        blk = iq[i * s:(i + 1) * s, None]
+        front.feed(tt, blk)
+        jstate, jspec, _ = jfft1.fft1_step(
+            jgeo, jrx.tables.fft1, jstate, jnp.asarray(blk),
+            jrx.params.fft_avg1num)
+        jt.feed(np.abs(np.asarray(jspec)) ** 2)
+        history.append(((tt.locked, tt.update_cnt, tt._consumed),
+                        (jt.locked, jt.update_cnt, jt._consumed)))
+    return dict(tt=tt, jt=jt, history=history, doppler=request.param,
+                front=front)
+
+
+def test_radar_mode_locks_as_jax(radar_mode):
+    tt, jt = radar_mode["tt"], radar_mode["jt"]
+    for i, (t, j) in enumerate(radar_mode["history"]):
+        assert t == j, f"step {i}"
+    assert tt.locked and tt.pulse_sep == PULSE_SEP_FRAMES
+    assert tt.pulse_bin == TX_BIN and tt.update_cnt >= 15
+    for name in ("pulse_sep", "pulse_bin", "lines", "first_bin", "last_bin",
+                 "decayfac", "update_cnt"):
+        assert getattr(tt, name) == getattr(jt, name), name
+    assert tt._bins == jt._bins
+    # S/N of the frames off the transmit pulse; on it the floor is the
+    # float32 transforms' roundoff (test_radar_front_equals_plain_and_jax)
+    ston, jston = np.array(tt._ston), np.array(jt._ston)
+    quiet = jston < 1e4
+    assert quiet.sum() > len(jston) // 2
+    assert _max_rel(ston[quiet], jston[quiet]) <= FP32
+    assert radar_mode["front"].graph.replays == RADAR_STEPS
+
+
+def test_radar_mode_echo_range_as_jax(radar_mode):
+    tt, jt = radar_mode["tt"], radar_mode["jt"]
+    assert _max_rel(tt.average, jt.average) <= FP32
+    line, off, dopp = tt.echo_peak()
+    assert (line, off, dopp) == jt.echo_peak()
+    assert abs(line - ECHO_DELAY_FRAMES) <= 1
+    assert off == radar_mode["doppler"]
+    assert tt.line_to_range_m(line) == jt.line_to_range_m(line)
 
 
 # ---- WFM stereo -------------------------------------------------------
