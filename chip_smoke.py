@@ -219,6 +219,11 @@ Phases, in order; any failure raises and the script exits non-zero:
             range equal to the CPU run's; one kernel launch per replay.
             Then ms per step of the graphed and the eager front in
             turns, kernels per replay and per display update.
+24. fft2    fft2_step at the flagship geometry: three steps of seeded
+            noise bit-equal to fft2_transform then fft2_power_update,
+            the last with TF32 switched on by the caller; make_tail's
+            zeros in the state's tail shape on the card.  No fused_fft1
+            launch.
 
 Every phase makes its receivers as a user would, so on the card they
 replay graphs; the phases count the kernel's launches from the replays
@@ -3443,6 +3448,69 @@ def phase_radar_mode(dev: dict, device="cuda") -> int:
     return launches
 
 
+def phase_fft2_step(dev: dict, device="cuda", tiny: bool = False,
+                    steps: int = 3) -> None:
+    """fft2_step at the flagship geometry: three steps of seeded noise
+    bit-equal to fft2_transform then fft2_power_update, and to itself
+    with TF32 switched on by the caller; make_tail's carry tail on the
+    card.  No fused_fft1 launch."""
+    from linrad_tpu_torch import derive_geometry, flagship_params
+    from linrad_tpu_torch.ops import fft2, framing
+    from linrad_tpu_torch.ops.fused_fft1 import fused_fft1
+    t0 = time.perf_counter()
+    geo = derive_geometry(flagship_params(tiny=tiny))
+    rng = np.random.default_rng(5)
+    shape = (geo.samples_per_step, geo.channels)
+
+    def noise(scale):
+        return torch.from_numpy((scale * (rng.normal(size=shape) + 1j
+                                          * rng.normal(size=shape))
+                                 ).astype(np.complex64)).to(device)
+
+    tables = fft2.FFT2Tables.create(geo, device)
+    tail = framing.make_tail(geo.fft2_size, geo.fft2_new_points,
+                             (geo.channels,), device=device)
+    if tail.shape != fft2.FFT2State.create(geo, device).tail.shape \
+            or tail.device.type != torch.device(device).type \
+            or torch.count_nonzero(tail).item():
+        raise AssertionError(f"fft2_step: make_tail gave {tail.shape} on "
+                             f"{tail.device}")
+    whole = parts = fft2.FFT2State.create(geo, device)
+    fused_fft1.launches = 0
+    saved = torch.backends.cuda.matmul.allow_tf32
+    for step in range(steps):
+        weak, strong = noise(1.0), noise(5.0)
+        torch.backends.cuda.matmul.allow_tf32 = step == steps - 1
+        try:
+            whole, spec, power = fft2.fft2_step(geo, tables, whole, weak,
+                                                strong, 8)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+        new_tail, ref = fft2.fft2_transform(geo, tables, parts.tail, weak,
+                                            strong)
+        parts, ref_power = fft2.fft2_power_update(geo, parts, new_tail,
+                                                  ref, 8)
+        got = (spec, power, whole.tail, whole.sumsq_avg)
+        want = (ref, ref_power, parts.tail, parts.sumsq_avg)
+        if spec.shape != (geo.fft2_frames_per_step, geo.fft2_size,
+                          geo.channels) \
+                or not all(torch.isfinite(x).all().item() for x in got):
+            raise AssertionError(f"fft2_step: step {step} spectra "
+                                 f"{tuple(spec.shape)} or non-finite")
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"fft2_step: step {step} differs from "
+                                 f"fft2_transform + fft2_power_update")
+    if fused_fft1.launches:
+        raise AssertionError(f"fft2_step: fused_fft1 launched "
+                             f"{fused_fft1.launches} times")
+    print(f"fft2_step: {steps} steps at fft2 {geo.fft2_size} x "
+          f"{geo.fft2_frames_per_step} frames, bit-equal to fft2_transform "
+          f"then fft2_power_update (the last with allow_tf32 = True set "
+          f"by the caller); make_tail zeros of the state's tail shape; "
+          f"fused_fft1 launches 0; phase "
+          f"{time.perf_counter() - t0:.1f} s [{dev['smi']}]")
+
+
 def graph_report_one(graph, label: str, dev: dict) -> None:
     print(f"graphed {label}: {graph.replays} replays, {graph.kernels} "
           f"fused_fft1 node(s), capture {graph.capture_seconds:.3f} s, graph "
@@ -3560,6 +3628,7 @@ def main() -> None:
     launches += phase_graphed(dev)
     launches += phase_presets(dev)
     launches += phase_radar_mode(dev)
+    phase_fft2_step(dev)
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} "
           f"s [{dev['smi']}]")
     print(json.dumps({"kernels": [{

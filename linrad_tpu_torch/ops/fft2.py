@@ -58,3 +58,15 @@ def fft2_power_update(geo: Geometry, state: FFT2State,
     alpha = min(1.0, geo.fft2_frames_per_step / max(avg2num, 1))
     sumsq = state.sumsq_avg * (1.0 - alpha) + step_power * alpha
     return FFT2State(tail=new_tail, sumsq_avg=sumsq), step_power
+
+
+def fft2_step(geo: Geometry, tables: FFT2Tables, state: FFT2State,
+              weak: torch.Tensor, strong: torch.Tensor, avg2num: int = 8
+              ) -> tuple[FFT2State, torch.Tensor, torch.Tensor]:
+    """fft2_transform + fft2_power_update in one call (no spur stage).
+
+    Returns (state, spectra (n2, fft2_size, C), step_power)."""
+    new_tail, spec = fft2_transform(geo, tables, state.tail, weak, strong)
+    new_state, step_power = fft2_power_update(geo, state, new_tail, spec,
+                                              avg2num)
+    return new_state, spec, step_power

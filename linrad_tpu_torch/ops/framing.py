@@ -37,6 +37,14 @@ def frame_stream(tail: torch.Tensor, block: torch.Tensor, frame_size: int,
     return frames, buf[..., s:, :]
 
 
+def make_tail(frame_size: int, hop: int, trailing_shape=(),
+              dtype=torch.complex64, *, device) -> torch.Tensor:
+    """Zero-initialised carry tail for :func:`frame_stream`:
+    (frame_size - hop,) + trailing_shape, on ``device``."""
+    return torch.zeros((frame_size - hop,) + tuple(trailing_shape),
+                       dtype=dtype, device=device)
+
+
 def overlap_add(frames: torch.Tensor, hop: int, carry: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Overlap-add a batch of frames at the given hop.

@@ -80,7 +80,7 @@ class Mix1State:
 
 
 def mix1_step(geo: Geometry, tables: Mix1Tables, state: Mix1State,
-              spectra: torch.Tensor, center_bins: torch.Tensor,
+              spectra: torch.Tensor, center_bins: torch.Tensor, *,
               tune_frac: torch.Tensor | None = None,
               tune_slope: torch.Tensor | None = None
               ) -> tuple[Mix1State, torch.Tensor]:
@@ -92,7 +92,9 @@ def mix1_step(geo: Geometry, tables: Mix1Tables, state: Mix1State,
     optional () or (n,) float32 fractional bin offset (set_mix1_phases
     mix1.c:781-860); tune_slope: optional () or (n,) float32 frequency
     change across each frame in big-FFT bins per hop, which linearises AFC
-    drift within a frame (requires tune_frac).
+    drift within a frame (requires tune_frac).  Both are keyword-only:
+    the JAX version's sixth parameter is the inverse FFT's variant,
+    which no caller passes and the port does not take.
 
     With a state stacked on leading axes (K sub-receivers), center_bins,
     tune_frac and tune_slope are (K, 1) or (K, n): the frame axis is

@@ -478,7 +478,7 @@ def graph_group(group, graphed: bool | None) -> bool:
         raise NotImplementedError(
             "graphed=True: the sharded step over several devices or a "
             "DistGroup runs eagerly; graphing it across cards is queued in "
-            "ROADMAP.md, queue 1 item 6")
+            "ROADMAP.md, queue 1 item 3")
     return one and group.home.type == "cuda" if graphed is None \
         else bool(graphed)
 

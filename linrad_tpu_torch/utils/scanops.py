@@ -53,13 +53,15 @@ def _affine_scan(v: torch.Tensor, a: float) -> torch.Tensor:
     return y.reshape(nb * BLOCK, width)[:n]
 
 
-def one_pole(x: torch.Tensor, a: float, y0: torch.Tensor, dim: int = 0
+def one_pole(x: torch.Tensor, a: float, y0: torch.Tensor, *, dim: int = 0
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """y[t] = a*y[t-1] + (1-a)*x[t] along axis ``dim`` with initial state
     y0 (unity DC gain).
 
     x: float32 with n samples along ``dim``; a a Python float; y0 the
-    carried state (x's shape without ``dim``).  Returns (y, y_last)."""
+    carried state (x's shape without ``dim``).  Returns (y, y_last).
+    ``dim`` is keyword-only: the JAX version's fourth parameter is an
+    explicit b, which no caller passes and the port does not take."""
     a = float(torch.tensor(a, dtype=torch.float32))  # a rounded to float32
     b = 1.0 - a
     x = x.movedim(dim, 0)
