@@ -6,8 +6,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device   require CUDA, print the card, its power limit, the torch and
             CUDA versions; turn TF32 off for matmul and cuDNN.
-2. build    build the fused fft1 kernel from linrad_tpu_torch/csrc/ with
-            nvcc (sm_90a) and print the build seconds.
+2. build    build the three kernels of linrad_tpu_torch/csrc/ (the fused
+            fft1, the blanker's fits, sellim's taper) with nvcc (sm_90a),
+            one nvcc each, all at once, and print the build seconds and
+            what ptxas says of registers and spills.
 3. kernel   fused_fft1 (kernel) against fused_fft1_reference (plain
             PyTorch) on the card at eleven shapes, the flagship's, the
             EME path's and the HSMS and NCW presets' among them, and
@@ -23,12 +25,41 @@ Phases, in order; any failure raises and the script exits non-zero:
             the same way (library_ms: the transform without window,
             calibration or power; a yardstick the port never calls) and
             one empty kernel launch (launch_floor_ms).
+3b. loops  the two device loops of the main path, each one launch of a
+            hand-written kernel, against their plain PyTorch versions on
+            the card: blanker_fits (the blocked clever blanker's fits) on
+            the arguments the pipeline hands it in eager steps of the
+            flagship (65,536 samples, up to 64 fits), the EME path (two
+            channels) and WCW (262,144 samples, 16 fits), under
+            torch.func.vmap over 8 flagship steps as a fleet's streams
+            (one launch), and with a time shard's ineligible halos: nfit
+            exact, weak and pwr within 1e-5, the arguments unchanged;
+            sellim_taper (the edge taper) on the flagship's arguments, on
+            carriers at fft1 512, 2,048, 4,096, 8,192 and 16,384 (the
+            widest one's budget lasts all 64 passes), at 32,768 (its
+            arrays in global memory) and under vmap over 8 streams: signs
+            exact, gains within 1e-6.  Two runs bit-identical, a replay
+            from a CUDA graph bit-equal to the eager call.  Per case
+            device_ms (graph replay), eager ms, the launch floor, bound_ms
+            (the bytes these inputs need over 3.35 TB/s, or the operations
+            of the iterations that run), the plain version's device_ms
+            and kernels per call (at the flagship's shape also its eager
+            ms and the kernel's device ops per call); no library call
+            computes either loop.  Then the graphed
+            flagship Receiver (8 steps) and BatchRunner (16) through the
+            kernels against the same with the plain versions patched in,
+            to phase 4's bars with the blanker counts and liminfo signs
+            exact (step 0's agc_gain within 2e-4), what those bars read
+            for plain fits with the pulse bank at bfloat16 (printed), and
+            both runners' kernels and ms per replayed step in turns.
 4. main     the flagship receive step (96 kHz IQ, 65,536 samples per
             step, fft1 2048 with the kernel) through Receiver for 8 steps
             of a weak keyed CW tone, Gaussian noise, impulse noise and a
             strong carrier; one kernel launch per step (per replay of the
-            Receiver's graph); the same input through a Receiver on
-            torch.fft ("xla") must agree within the stated bars.
+            Receiver's graph), and one of each loop kernel (their counts
+            set to 0 before and read after); the same input through a
+            Receiver on torch.fft ("xla") must agree within the stated
+            bars.
 5. timing   eager step time and complex Msamples/s for both receivers.
 6. eme      the EME configuration (48 kHz two-channel IQ, WCW preset:
             adaptive polarization, coherent CW detection, AFC with drift
@@ -233,18 +264,20 @@ replay graphs; the phases count the kernel's launches from the replays
 
 ``python3 chip_smoke.py --stages`` runs phases 1 and 2 and then, instead
 of the smoke run, a diagnostic: the synced wall time of every stage of
-the multi-receiver step at K = 24 and K = 1.  ``--regimes`` likewise
-prints the graphed flagship step's time at points of one process's life
-(a fresh runner, after the profiler's first start, after another capture,
-after an eager loop).
+the multi-receiver step at K = 24 and K = 1, with its device kernels.
+``--regimes`` likewise prints the graphed flagship step's time at points
+of one process's life (a fresh runner, after the profiler's first start,
+after another capture, after an eager loop).
 
 It prints the whole run's seconds, a JSON line describing every kernel
-of the paths (launches summed over the flagship, EME, multi-receiver,
-real-input, batch, checkpoint, file, rounds, mxu, calibration, fleet, CW
-decode, phase 20's single-device and fleet runs, phase 21's graphed
-receivers, phase 22's "pallas" presets and phase 23's radar front, each
-counted from zero; times at the flagship's shape, and per shape under
-"by_shape"), then, as the last line, {"ok": true, "device": {...}}.
+of the paths (fused_fft1's launches summed over the flagship, EME,
+multi-receiver, real-input, batch, checkpoint, file, rounds, mxu,
+calibration, fleet, CW decode, phase 20's single-device and fleet runs,
+phase 21's graphed receivers, phase 22's "pallas" presets and phase 23's
+radar front, each counted from zero; times at the flagship's shape, and
+per shape under "by_shape"; the loop kernels' launches over phase 4's
+main path, their times at the flagship's arguments, and per case under
+"by_case"), then, as the last line, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -418,14 +451,20 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
+    """Every kernel of csrc/ built at once, one nvcc each."""
     from linrad_tpu_torch.ops import fused_fft1 as ff
+    from linrad_tpu_torch.utils import cuda_build
     t0 = time.perf_counter()
-    _, info = ff.build()
-    print(f"build: {info['path']} in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {info['build_seconds']:.2f} s)")
-    for line in info["log"].splitlines():
-        if any(w in line for w in ("registers", "smem", "spill", "error")):
-            print(f"  ptxas: {line.strip()}")
+    built = cuda_build.build_all()
+    ff.build()
+    print(f"build: {len(built)} kernels in {time.perf_counter() - t0:.2f} s")
+    for name, (_lib, info) in built.items():
+        print(f"build {name}: {info['path']} (nvcc "
+              f"{info['build_seconds']:.2f} s)")
+        for line in info["log"].splitlines():
+            if any(w in line for w in ("registers", "smem", "spill",
+                                       "error")):
+                print(f"  ptxas: {line.strip()}")
 
 
 def phase_kernel(dev: dict) -> dict:
@@ -521,6 +560,478 @@ def phase_kernel(dev: dict) -> dict:
     return report
 
 
+# ---- phase 3b: the loop kernels ---------------------------------------
+
+# The two device loops of the main path and the JAX loops they replace
+LOOP_KERNELS = (("blanker_fits", "linrad_tpu/ops/blanker.py:322"),
+                ("sellim_taper", "linrad_tpu/ops/sellim.py:150"))
+LOOP_FITS_TOL = 1e-5     # weak and pwr against the plain version: max_rel
+LOOP_TAPER_TOL = 1e-6    # the tapered gains: max_rel; the signs exact
+# The chain through the loop kernels against the same with their plain
+# versions: step 0's audio and agc_gain carry the AGC's start-up (see
+# START_AUDIO_TOL), which amplifies the blanker's float32 differences
+# (weak 2.6e-7 apart): agc_gain measured 1.01e-4 on an H100 in step 0,
+# 4.1e-7 from step 1 on, where the bars are phase 4's.  Step 0's agc_gain
+# bar sits between that reading and the 2.79e-4 of plain fits with the
+# pulse bank at bfloat16 (``lowered_fits``), which a bar of three times
+# the reading, MULTI_START_TOL's margin, would pass.
+LOOP_START_TOL = {"audio": START_AUDIO_TOL, "agc_gain": 2e-4}
+LOOP_STREAMS = 8         # the fleet's streams under torch.func.vmap
+LOOP_HALO = 2048         # the eligible case's halos at both ends
+# fft1 sizes of the taper: HSMS, the flagship, NCW, WCW, QRSS
+TAPER_MODES = ("HSMS", None, "NCW", "WCW", "QRSS")
+
+
+def loop_counts() -> dict:
+    """The loop kernels' launch counts by name."""
+    from linrad_tpu_torch.ops import blanker as bl
+    from linrad_tpu_torch.ops import sellim as sl
+    return {"blanker_fits": bl.fits_count, "sellim_taper": sl.taper_count}
+
+
+def record_calls(module, name: str, run) -> list:
+    """The positional arguments of every call of ``module.name`` while
+    ``run()`` runs; each call goes on to the function."""
+    real = getattr(module, name)
+    seen = []
+
+    def recording(*args):
+        seen.append(args)
+        return real(*args)
+
+    setattr(module, name, recording)
+    try:
+        run()
+    finally:
+        setattr(module, name, real)
+    return seen
+
+
+def with_loop_references(run, fits=None):
+    """run() with the loop kernels' wrappers replaced, where the pipeline
+    calls them, by their plain versions (as ``stage_split`` patches the
+    stage functions), or the fits by ``fits`` where given."""
+    from linrad_tpu_torch.ops import blanker as bl
+    from linrad_tpu_torch.ops import sellim as sl
+    saved = bl.blanker_fits, sl.sellim_taper
+    bl.blanker_fits = fits or bl._blanker_fits_reference
+    sl.sellim_taper = sl._sellim_taper_reference
+    try:
+        return run()
+    finally:
+        bl.blanker_fits, sl.sellim_taper = saved
+
+
+def loop_args(p, iq: np.ndarray, tune_hz: float, steps: int,
+              device="cuda") -> tuple:
+    """The arguments of blanker_fits and of sellim_taper in each of
+    ``steps`` eager steps of a Receiver of p on the card."""
+    from linrad_tpu_torch.ops import blanker as bl
+    from linrad_tpu_torch.ops import sellim as sl
+    from linrad_tpu_torch.pipeline.receiver import Receiver
+    rx = Receiver(p, device=device, graphed=False)
+    rx.tune(tune_hz)
+    s = rx.geo.samples_per_step
+    taper = []
+
+    def run():
+        taper.extend(record_calls(sl, "sellim_taper", lambda: [
+            rx.process_block(iq[i * s:(i + 1) * s]) for i in range(steps)]))
+
+    fits = record_calls(bl, "blanker_fits", run)
+    return fits, taper
+
+
+def valid_fits(args: tuple) -> int:
+    """The fits whose candidate is above the threshold, as the plain
+    version meets them: the iterations the kernel runs before it stops."""
+    from linrad_tpu_torch.ops import blanker as bl
+    calls = record_calls(bl, "_fit_subtract",
+                         lambda: bl._blanker_fits_reference(*args))
+    return sum(bool(c[5]) for c in calls)
+
+
+def taper_passes(lim: torch.Tensor, budget: torch.Tensor) -> int:
+    """The passes the kernel runs: up to the first that changes no bin."""
+    from linrad_tpu_torch.ops import sellim as sl
+    for k in range(1, sl.TAPER_STEPS + 1):
+        new, budget = sl._taper_pass(lim, budget)
+        if torch.equal(new, lim):
+            return k
+        lim = new
+    return sl.TAPER_STEPS
+
+
+def taper_spectrum(n: int, seed: int) -> np.ndarray:
+    """An averaged fft1 power spectrum: noise, a narrow strong carrier, a
+    weaker one, and one about a ninetieth of the band wide, whose budget
+    lasts all 64 passes from fft1 8,192 on."""
+    rng = np.random.default_rng(seed)
+    k = np.arange(n)
+    p = 1e3 * rng.chisquare(4, size=n) / 4
+    for centre, height, width in ((n // 5, 3e11, 1.5), (3 * n // 4, 5e9, 0.7),
+                                  (n // 2 + n // 7, 1e12, n / 90)):
+        p += height * np.exp(-0.5 * ((k - centre) / width) ** 2)
+    return p.astype(np.float32)
+
+
+def fits_bytes_ops(args: tuple, m: int) -> tuple[int, int]:
+    """What one blanker_fits call must move and compute with m fits run:
+    its inputs read once (the bank's rows those fits use), its outputs
+    written once; per fit the two argmaxes, the window's arithmetic and
+    the refresh of two blocks."""
+    wpad, _pp, _cp, bmax, bank, _pf, _thr, _pw, _mp, _lead, s = args
+    total, c = wpad.shape[-2:]
+    nblk = bmax.shape[-1]
+    pul = bank.shape[-1]
+    r = wpad.numel() // (total * c)
+    nbytes = r * (8 * total * c + 8 * total + 4 * nblk + 4 + 8 * s * c
+                  + 4 * s + 4) + 8 * pul + 8 * pul * m
+    ops = m * (nblk + 3 * (total // nblk) + 60 * pul * c)
+    return nbytes, ops
+
+
+def loop_case(dev: dict, name: str, label: str, kernel, plain, compare,
+              nbytes: int, ops: int, floor: float, reps: int,
+              plain_device: bool = True, main: bool = False) -> dict:
+    """kernel() against plain() on the card (compare(got, want) returns
+    max_abs_err and a text, and raises beyond the bars); two runs of the
+    kernel and a replay of it from a CUDA graph give the same bits; then
+    the times: device_ms (graph replays), eager ms, and, with
+    ``plain_device``, the plain version's device_ms and its kernels per
+    call (torch.profiler); at the ``main`` case (the main path's shape)
+    also the kernel's device ops per call and the plain version's eager
+    ms (a profile costs about a second, so the other cases skip it)."""
+    from linrad_tpu_torch.utils.timing import cuda_ms, graph_ms
+    got, again, want = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    err, text = compare(got, want)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name} {label}: two runs differ")
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        replayed = kernel()
+    graph.replay()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(replayed, got)):
+        raise AssertionError(f"{name} {label}: the graph's replay differs "
+                             f"from the eager call")
+    ms = cuda_ms(kernel, reps)
+    ms = 0.5 * (ms + cuda_ms(kernel, reps))
+    device_ms = graph_ms(kernel, reps, 5)
+    device_ms = 0.5 * (device_ms + graph_ms(kernel, reps, 5))
+    plain_ms = cuda_ms(plain, 2) if main else None
+    plain_device_ms = plain_kernels = None
+    if plain_device:
+        plain_device_ms = graph_ms(plain, 1, 3)
+        plain_kernels = profile_call(plain)["ops"]
+    kernels = profile_call(kernel)["ops"] if main else "not counted"
+    by_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    by_ops = 1e3 * ops / PEAK_FP32_OPS_PER_S
+    bound = max(by_bytes, by_ops)
+    print(f"loops {name} {label}: {text}, max_abs_err {err:.3e}; two runs "
+          f"bit-identical, graph replay bit-equal to eager; device_ms "
+          f"{device_ms:.5f}, eager ms {ms:.5f}, launch_floor_ms "
+          f"{floor:.5f}, {kernels} device op(s) per call; bound_ms "
+          f"{bound:.6f} ({nbytes} bytes; by operations {by_ops:.6f}), "
+          f"share of bound {bound / device_ms:.4f}; plain version: device_ms "
+          f"{plain_device_ms if plain_device else 'not measured'}, eager ms "
+          f"{plain_ms or 'not measured'}, {plain_kernels or 'not counted'} "
+          f"device ops per call; library_ms none (no one PyTorch call "
+          f"computes the loop) [{dev['smi']}]", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "device_ms": device_ms, "plain_device_ms": plain_device_ms,
+            "plain_kernels": plain_kernels, "bound_ms": bound,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": None, "launch_floor_ms": floor}
+
+
+def compare_fits(got, want) -> tuple[float, str]:
+    (kw, kp, kn), (rw, rp, rn) = got, want
+    if not torch.equal(kn, rn):
+        raise AssertionError(f"blanker_fits: nfit {kn.tolist()} != "
+                             f"{rn.tolist()}")
+    rel_w, rel_p = max_rel(kw, rw), max_rel(kp, rp)
+    err = max((kw - rw).abs().max().item(), (kp - rp).abs().max().item())
+    if rel_w > LOOP_FITS_TOL or rel_p > LOOP_FITS_TOL:
+        raise AssertionError(f"blanker_fits: weak max_rel {rel_w}, pwr "
+                             f"{rel_p} (bar {LOOP_FITS_TOL})")
+    return err, (f"nfit {kn.tolist()} exact, weak max_rel {rel_w:.2e}, pwr "
+                 f"{rel_p:.2e} (bar {LOOP_FITS_TOL})")
+
+
+def compare_taper(got, want) -> tuple[float, str]:
+    (kl,), (rl,) = got, want
+    if not torch.equal(torch.sign(kl), torch.sign(rl)):
+        raise AssertionError("sellim_taper: the sign pattern differs")
+    rel = max_rel(kl, rl)
+    if rel > LOOP_TAPER_TOL:
+        raise AssertionError(f"sellim_taper: max_rel {rel} (bar "
+                             f"{LOOP_TAPER_TOL})")
+    return (kl - rl).abs().max().item(), (
+        f"signs exact, {int((kl > 0).sum())} gains tapered or limited, "
+        f"max_rel {rel:.2e} (bar {LOOP_TAPER_TOL})")
+
+
+def fits_case(dev: dict, label: str, args: tuple, floor: float,
+              plain_device: bool = True, main: bool = False) -> dict:
+    """blanker_fits on one stream's arguments, as the pipeline hands them."""
+    from linrad_tpu_torch.ops import blanker as bl
+    m = valid_fits(args)
+    before = [a.clone() for a in args[:7]]
+    nbytes, ops = fits_bytes_ops(args, m)
+    wpad = args[0]
+    rep = loop_case(dev, "blanker_fits",
+                    f"{label} {tuple(wpad.shape)} x {args[8]}, {m} fits "
+                    f"run", lambda: bl.blanker_fits(*args),
+                    lambda: bl._blanker_fits_reference(*args), compare_fits,
+                    nbytes, ops, floor, 20, plain_device, main)
+    if not all(torch.equal(a, b) for a, b in zip(args[:7], before)):
+        raise AssertionError("blanker_fits changed an argument")
+    return rep
+
+
+def fits_vmap_case(dev: dict, streams: list, floor: float) -> dict:
+    """blanker_fits under torch.func.vmap over the streams (each its own
+    threshold): one launch of R blocks, against the plain version stream
+    by stream."""
+    from linrad_tpu_torch.ops import blanker as bl
+    stack = [torch.stack([a[i] for a in streams]) for i in (0, 1, 2, 3, 6)]
+    w, p, c, b, thr = stack
+    bank, pf, pw, mp, lead, s = streams[0][4], streams[0][5], \
+        *streams[0][7:]
+
+    def kernel():
+        return torch.func.vmap(lambda *x: bl.blanker_fits(
+            *x[:4], bank, pf, x[4], pw, mp, lead, s))(w, p, c, b, thr)
+
+    def plain():
+        outs = [bl._blanker_fits_reference(*a) for a in streams]
+        return tuple(torch.stack(v) for v in zip(*outs))
+
+    before = bl.fits_count.launches
+    kernel()
+    if bl.fits_count.launches != before + 1:
+        raise AssertionError("blanker_fits under vmap: expected one launch")
+    m = sum(valid_fits(a) for a in streams)
+    nbytes, ops = fits_bytes_ops((w, p, c, b, bank, pf, thr, pw, mp, lead,
+                                  s), m)
+    return loop_case(dev, "blanker_fits",
+                     f"vmap R={len(streams)} {tuple(w.shape)} x {mp}, {m} "
+                     f"fits run in all", kernel, plain, compare_fits,
+                     nbytes, ops, floor, 10, plain_device=False)
+
+
+def taper_case(dev: dict, label: str, lim: torch.Tensor,
+               budget: torch.Tensor, floor: float,
+               plain_device: bool = True, main: bool = False) -> dict:
+    """sellim_taper on (lim, budget) of one stream or, stacked, of a
+    fleet's streams under torch.func.vmap."""
+    from linrad_tpu_torch.ops import sellim as sl
+    if lim.dim() == 2:
+        kernel = lambda: (torch.func.vmap(sl.sellim_taper)(lim, budget),)
+        plain = lambda: (torch.stack([sl._sellim_taper_reference(a, b)
+                                      for a, b in zip(lim, budget)]),)
+        passes = [taper_passes(a, b) for a, b in zip(lim, budget)]
+        before = sl.taper_count.launches
+        kernel()
+        if sl.taper_count.launches != before + 1:
+            raise AssertionError("sellim_taper under vmap: expected one "
+                                 "launch")
+    else:
+        kernel = lambda: (sl.sellim_taper(lim, budget),)
+        plain = lambda: (sl._sellim_taper_reference(lim, budget),)
+        passes = [taper_passes(lim, budget)]
+    n = lim.shape[-1]
+    return loop_case(dev, "sellim_taper",
+                     f"{label} {tuple(lim.shape)}, passes run {passes}",
+                     kernel, plain, compare_taper, 12 * lim.numel(),
+                     12 * n * sum(passes), floor, 20, plain_device, main)
+
+
+def phase_loop_kernels(dev: dict) -> dict:
+    """Phase 3b.  Returns, per loop kernel, its report at the main path's
+    shape (the flagship's) and at every other shape."""
+    from linrad_tpu_torch import RxMode, derive_geometry, flagship_params
+    from linrad_tpu_torch import preset
+    from linrad_tpu_torch.io.modeinput import mode_input
+    from linrad_tpu_torch.ops import fused_fft1 as ff
+    from linrad_tpu_torch.ops import sellim as sl
+    from linrad_tpu_torch.utils.timing import graph_ms
+    t0 = time.perf_counter()
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    floor = graph_ms(lambda: ff.empty_launch(cuda), 50, 20)
+    p = flagship_params(fft1_variant="pallas")
+    geo = derive_geometry(p)
+    steps = LOOP_STREAMS + 1
+    fits, tapers = loop_args(p, make_input(geo, seed=6, steps=steps),
+                             TUNE_HZ, steps)
+    fits_rep = {"flagship": fits_case(dev, "flagship", fits[1], floor,
+                                      main=True)}
+    pe = eme_params("pallas")
+    ge = derive_geometry(pe)
+    eme_fits, _ = loop_args(pe, make_eme_input(ge, 3), EME_TUNE_HZ, 3)
+    fits_rep["eme"] = fits_case(dev, "EME", eme_fits[-1], floor)
+    pw_ = preset(RxMode.WCW)
+    gw = derive_geometry(pw_)
+    wcw_fits, _ = loop_args(pw_, mode_input(RxMode.WCW, gw, 2,
+                                            PRESET_DIAL_HZ),
+                            PRESET_DIAL_HZ, 2)
+    fits_rep["wcw"] = fits_case(dev, "WCW", wcw_fits[-1], floor)
+    fits_rep["vmap"] = fits_vmap_case(dev, fits[1:], floor)
+    # a time shard's halos: no candidate centre there
+    wpad, ppad, _c, bmax, *rest = fits[1]
+    lead, s = rest[-2], rest[-1]
+    active = torch.zeros(wpad.shape[0], dtype=torch.bool, device=cuda)
+    active[lead + LOOP_HALO: lead + s - LOOP_HALO] = True
+    candp = torch.where(active, ppad, -1.0)
+    bmax = candp.reshape(bmax.shape[0], -1).amax(1)
+    fits_rep["eligible"] = fits_case(dev, "eligible halo", (
+        wpad, ppad, candp, bmax, *rest), floor, plain_device=False)
+
+    taper_rep = {"flagship": taper_case(dev, "flagship", *tapers[1],
+                                        floor, main=True)}
+    inputs = {}
+    for mode in TAPER_MODES:
+        pt = flagship_params() if mode is None else preset(RxMode[mode])
+        gt = derive_geometry(pt)
+        n = gt.fft1_size
+        spec = torch.from_numpy(taper_spectrum(n, n)).cuda()
+        args = record_calls(sl, "sellim_taper", lambda: sl.update_liminfo(
+            gt, sl.SellimState.create(gt, "cuda"), spec, 8.0, ston=30.0))
+        inputs[n] = args[0][:2]
+        # the plain version's device time hardly depends on n (a fixed
+        # count of launches): taken at the largest size only
+        taper_rep[n] = taper_case(dev, f"{mode or 'flagship'} carriers",
+                                  *inputs[n], floor,
+                                  plain_device=mode == "QRSS")
+    big = max(inputs)
+    taper_rep[2 * big] = taper_case(
+        dev, "two QRSS bands side by side (global memory)",
+        *(torch.cat([x, x]) for x in inputs[big]), floor, plain_device=False)
+    taper_rep["vmap"] = taper_case(
+        dev, f"vmap R={LOOP_STREAMS}",
+        *(torch.stack([t[i] for t in tapers[1:]]) for i in (0, 1)), floor)
+    print(f"loops: kernels against their plain versions in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    phase_loop_chain(dev)
+    print(f"loops: phase 3b in {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"blanker_fits": fits_rep, "sellim_taper": taper_rep}
+
+
+def compare_batches(got: dict, ref: dict, geo, label: str) -> None:
+    """Two BatchRunner results to the chain's bars: the blanker counts and
+    liminfo's signs exact, audio 1e-3 in step 0 and 1e-4 after, the rest
+    CHAIN_TOL or CHAIN_TOL_OTHER."""
+    bb = geo.baseband_samples_per_step
+    for f in ("blanker_fitted", "blanker_cleared"):
+        if not np.array_equal(got[f], ref[f]):
+            raise AssertionError(f"{label}: {f} {got[f].ravel().tolist()} "
+                                 f"!= {ref[f].ravel().tolist()}")
+    if not np.array_equal(np.sign(got["liminfo"]), np.sign(ref["liminfo"])):
+        raise AssertionError(f"{label}: liminfo sign pattern differs")
+    worst = {}
+    for f in ("audio", "baseb", "fft2_power", "liminfo"):
+        a, b = torch.from_numpy(got[f]), torch.from_numpy(ref[f])
+        if f == "audio":
+            worst["audio step 0"] = (max_rel(a[:bb], b[:bb]),
+                                     START_AUDIO_TOL)
+            a, b = a[bb:], b[bb:]
+        worst[f] = (max_rel(a, b), CHAIN_TOL.get(f, CHAIN_TOL_OTHER))
+    print(f"{label}: blanker counts and liminfo signs exact; " + ", ".join(
+        f"{k} max_rel {v:.3e} (bar {bar})" for k, (v, bar) in worst.items()))
+    bad = [k for k, (v, bar) in worst.items() if v > bar]
+    if bad:
+        raise AssertionError(f"{label}: {bad} outside their bars")
+
+
+def lowered_fits(*args):
+    """The plain fits with the reference pulse bank rounded to bfloat16:
+    every subtracted pulse a little wrong."""
+    from linrad_tpu_torch.ops import blanker as bl
+    bank = torch.view_as_real(args[4]).bfloat16().float()
+    return bl._blanker_fits_reference(*args[:4], torch.view_as_complex(bank),
+                                      *args[5:])
+
+
+def lowered_fit_reading(p, iq: np.ndarray, kern: list, geo) -> None:
+    """What the chain's bars read for a fit that is a little wrong: the
+    graphed Receiver with ``lowered_fits`` against the one through the
+    kernels.  Printed, not asserted: it shows how far the bars sit from
+    such a fault."""
+    low = with_loop_references(lambda: run_rx(p, iq, "cuda"),
+                               fits=lowered_fits)
+    agc0 = max_rel(kern[0].agc_gain, low[0].agc_gain)
+    try:
+        compare_runs(kern, low, flagship_shapes(geo), "loops lowered fit: ",
+                     start_tol=LOOP_START_TOL,
+                     what="graphed Receiver with the reference bank at "
+                          "bfloat16 against the loop kernels")
+        verdict = "the chain's bars pass it"
+    except AssertionError as e:
+        verdict = f"the chain's bars fail it ({e})"
+    print(f"loops lowered fit: step 0 agc_gain max_rel {agc0:.3e} (bar "
+          f"{LOOP_START_TOL['agc_gain']}); {verdict}", flush=True)
+
+
+def phase_loop_chain(dev: dict) -> None:
+    """The graphed flagship Receiver and BatchRunner through the loop
+    kernels against the same with their plain versions patched in; then
+    kernels and ms per replayed step of both runners, in turns."""
+    from linrad_tpu_torch import derive_geometry, flagship_params
+    from linrad_tpu_torch.pipeline.batch import BatchRunner
+    p = flagship_params(fft1_variant="pallas")
+    geo = derive_geometry(p)
+    iq = make_input(geo, seed=4, steps=BATCH_STEPS)
+    loops = loop_counts()
+    counts = lambda: {n: (w.launches, w.captured) for n, w in loops.items()}
+    c0 = counts()
+    kern = run_rx(p, iq[:STEPS * geo.samples_per_step], "cuda")
+    c1 = counts()
+    ref = with_loop_references(
+        lambda: run_rx(p, iq[:STEPS * geo.samples_per_step], "cuda"))
+    if counts() != c1 or any(c1[n][1] <= c0[n][1] for n in loops):
+        raise AssertionError("loops chain: the kernels were not recorded in "
+                             "the Receiver's graph, or the plain run "
+                             "reached them")
+    compare_runs(kern, ref, flagship_shapes(geo), "loops chain: ",
+                 start_tol=LOOP_START_TOL,
+                 what="graphed Receiver through the loop kernels against "
+                      "their plain versions")
+    lowered_fit_reading(p, iq[:STEPS * geo.samples_per_step], kern, geo)
+    fields = ("audio", "baseb", "fft2_power", "liminfo", "blanker_fitted",
+              "blanker_cleared")
+
+    def runner():
+        br = BatchRunner(p, k_steps=BATCH_K, outputs=fields)
+        br.tune(TUNE_HZ)
+        return br
+
+    bk = runner()
+    br = with_loop_references(runner)
+    compare_batches(bk.process(iq), br.process(iq), geo,
+                    "loops chain: BatchRunner through the loop kernels "
+                    "against their plain versions")
+    stats = {}
+    for name, run in (("kernels", bk), ("plain", br)):
+        prof = profile_call(run._run_call)
+        stats[name] = (prof["ops"] / BATCH_K, prof["busy_ms"] / BATCH_K)
+    eager_batch(p, TUNE_HZ, iq, bk.device)     # ends in the fast regime
+    times: dict = {}
+    for name in ("kernels", "plain", "plain", "kernels"):
+        run = bk if name == "kernels" else br
+        times.setdefault(name, []).append(timed_ms(run._run_call) / BATCH_K)
+    for name, (ops, busy) in stats.items():
+        ms = times[name]
+        print(f"loops chain: graphed flagship step ({name}), "
+              f"{ops:.0f} device kernels and copies per step, {busy:.3f} ms "
+              f"of device time per step (torch.profiler); replays alone "
+              f"{min(ms):.3f}-{max(ms):.3f} ms per step (CUDA events around "
+              f"{BATCH_K} replays, in turns) [{dev['smi']}]", flush=True)
+
+
 def make_input(geo, seed: int = 0, steps: int = STEPS, tones=(TUNE_HZ,),
                tone_amplitude: float = 10.0, spur=None) -> np.ndarray:
     """steps steps of: a weak on/off-keyed CW tone at each frequency of
@@ -589,22 +1100,60 @@ def run_rx(p, iq: np.ndarray, device, calibration=None,
     return run_rx_counted(p, iq, device, calibration, tune_hz, graphed)[0]
 
 
-def phase_main() -> int:
-    """Returns the kernel's launch count over the main path's steps."""
+def phase_main() -> tuple[int, dict]:
+    """Returns the fused kernel's launch count over the main path's steps,
+    and each loop kernel's."""
     from linrad_tpu_torch import derive_geometry, flagship_params
     from linrad_tpu_torch.ops.fused_fft1 import fused_fft1
+    from linrad_tpu_torch.pipeline.receiver import Receiver
     geo = derive_geometry(flagship_params())
     iq = make_input(geo)
+    loops = loop_counts()
     fused_fft1.launches = 0
-    outs, launches = run_rx_counted(flagship_params(fft1_variant="pallas"),
-                                    iq, "cuda")
+    for w in loops.values():
+        w.launches = w.captured = 0
+    # each graph reads ``recorded`` just before and just after its
+    # capture: the loop kernels' captured counts at each read give what
+    # each graph recorded of each
+    reads = []
+
+    def recorded():
+        reads.append({n: w.captured for n, w in loops.items()})
+        return recorded_fft1()
+
+    rx = Receiver(flagship_params(fft1_variant="pallas"), device="cuda",
+                  recorded=recorded)
+    rx.tune(TUNE_HZ)
+    graphs = list(rx.graphs.values())
+    if len(reads) != 2 * len(graphs):
+        raise AssertionError(f"{len(graphs)} graphs read the capture count "
+                             f"{len(reads)} times")
+    made = {n: w.launches for n, w in loops.items()}
+    before = fused_fft1.launches
+    outs = list(rx.run(iq))
+    torch.cuda.synchronize()
+    launches = rx_launches(rx, before)
+    per_graph = [{n: after[n] - start[n] for n in loops}
+                 for start, after in zip(reads[::2], reads[1::2])]
+    loop_launches = {n: sum(g.replays * k[n]
+                            for g, k in zip(graphs, per_graph))
+                     + w.launches - made[n] for n, w in loops.items()}
     print(f"main path: {len(outs)} steps of {geo.samples_per_step} samples "
           f"through the graphed Receiver, fused_fft1 launches {launches} "
           f"(replays of the kernel recorded in the graph; the wrapper's own "
-          f"count, the capture's warm-up included, {fused_fft1.launches})")
+          f"count, the capture's warm-up included, {fused_fft1.launches}); "
+          + "; ".join(f"{n} launches {loop_launches[n]} (the wrapper's own "
+                      f"count {w.launches}; recorded per graph "
+                      f"{[k[n] for k in per_graph]}, replays "
+                      f"{[g.replays for g in graphs]})"
+                      for n, w in loops.items()))
     if launches != STEPS or len(outs) != STEPS:
         raise AssertionError(f"expected {STEPS} kernel launches (one per "
                              f"step), saw {launches}")
+    if any(loop_launches[n] < STEPS or w.launches == 0
+           for n, w in loops.items()):
+        raise AssertionError(f"the loop kernels were not launched on the "
+                             f"main path: {loop_launches}")
     shapes = flagship_shapes(geo)
     check_outputs(outs, shapes)
     fitted = [int(o.blanker_fitted) for o in outs]
@@ -626,7 +1175,7 @@ def phase_main() -> int:
 
     compare_runs(outs, run_rx(flagship_params(fft1_variant="xla"), iq,
                               "cuda"), shapes, "")
-    return launches
+    return launches, loop_launches
 
 
 def flagship_shapes(geo, lead: tuple = ()) -> dict:
@@ -3534,8 +4083,10 @@ def stage_split(dev: dict, k_sub: int = MULTI_K, steps: int = 6) -> None:
     --stages``): the multi-receiver step of phase 8 with a device
     synchronisation before and after every stage function, so that each
     stage's wall time holds its own launches and device work.  Prints ms
-    per stage and step, averaged over ``steps`` steps after 2 of warm-up.
-    The synced step is slower than the free-running one."""
+    per stage and step, averaged over ``steps`` steps after 2 of warm-up,
+    and beside it the stage's device kernels and copies in one more step,
+    each stage under a torch.profiler of its own.  The synced step is
+    slower than the free-running one."""
     from linrad_tpu_torch import derive_geometry
     from linrad_tpu_torch.pipeline import chain
     from linrad_tpu_torch.pipeline.receiver import MultiReceiver
@@ -3556,11 +4107,20 @@ def stage_split(dev: dict, k_sub: int = MULTI_K, steps: int = 6) -> None:
     s = geo.samples_per_step
     blocks = [torch.from_numpy(iq[i * s:(i + 1) * s]).cuda()
               for i in range(steps + 2)]
-    spent = {}
+    from torch.profiler import ProfilerActivity, profile
+    spent, kernels, counting = {}, {}, []
 
     def timed(fn, name):
         def wrapper(*args, **kw):
             torch.cuda.synchronize()
+            if counting:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    out = fn(*args, **kw)
+                    torch.cuda.synchronize()
+                kernels[name] = kernels.get(name, 0) + sum(
+                    e.count for e in prof.key_averages()
+                    if str(e.device_type).endswith("CUDA"))
+                return out
             t0 = time.perf_counter()
             out = fn(*args, **kw)
             torch.cuda.synchronize()
@@ -3583,13 +4143,17 @@ def stage_split(dev: dict, k_sub: int = MULTI_K, steps: int = 6) -> None:
             rx.process_block(b)
         torch.cuda.synchronize()
         whole = time.perf_counter() - t0
+        counting.append(True)
+        rx.process_block(blocks[-1])
     finally:
         for owner, name, fn in saved:
             setattr(owner, name, fn)
     print(f"stage split, MultiReceiver K={k_sub}, synced wall ms per stage "
-          f"over {steps} steps [{dev['smi']}]:")
+          f"over {steps} steps, and device kernels and copies per stage "
+          f"in one more [{dev['smi']}]:")
     for name, sec in sorted(spent.items(), key=lambda kv: -kv[1]):
-        print(f"  {name}: {1e3 * sec / steps:.3f}")
+        print(f"  {name}: {1e3 * sec / steps:.3f} ms, "
+              f"{kernels.get(name, 0)} kernels")
     rest = whole - sum(spent.values())
     print(f"  outside the stages: {1e3 * rest / steps:.3f}; whole synced "
           f"step {1e3 * whole / steps:.3f}")
@@ -3607,7 +4171,8 @@ def main() -> None:
         replay_regimes(dev)
         return
     kern = phase_kernel(dev)
-    launches = phase_main()
+    loops = phase_loop_kernels(dev)
+    launches, loop_launches = phase_main()
     phase_timing(dev)
     eme_launches, eme_rx, eme_iq = phase_eme()
     phase_eme_timing(dev, eme_rx, eme_iq)
@@ -3631,13 +4196,21 @@ def main() -> None:
     phase_fft2_step(dev)
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} "
           f"s [{dev['smi']}]")
-    print(json.dumps({"kernels": [{
+    entries = [{
         "name": "fused_fft1", "route": "cuda",
         "source": "linrad_tpu_torch/csrc/fused_fft1.cu",
         "replaces": "linrad_tpu/ops/pallas_fft.py:59",
         "launches": launches, **kern[MAIN_SHAPE],
         "by_shape": {"x".join(map(str, shape)): v
-                     for shape, v in kern.items()}}]}))
+                     for shape, v in kern.items()}}]
+    for name, replaces in LOOP_KERNELS:
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"linrad_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": loop_launches[name],
+            **loops[name]["flagship"],
+            "by_case": {str(k): v for k, v in loops[name].items()}})
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["name"], "count": dev["count"]}}))
 

@@ -8,23 +8,35 @@ bank of fractionally shifted reference pulses (blank1.c:36-232), up to
 above threshold, widened by the sqrt(peak/noise)/100 rule
 (blank1.c:1013-1083).
 
-The fit loop runs ``max_pulses`` iterations on device tensors: every
-dynamic position (candidate, fit window, block) is an index tensor that
-stays on the device, so the loop never waits for the host.  The padded
-working copies are updated in place, by ``index_put_``, which
-``torch.func.vmap`` batches (a fleet of receivers runs this loop under
-it).  The round-parallel variant (``rounds>0``) fits every locally
-dominant block's strongest candidate at once, ``rounds`` times.
+The blocked search's fit loop (the flagship's, and every preset's) is
+:func:`blanker_fits`: on a CUDA tensor one launch of the hand-written
+kernel in ``csrc/blanker_fits.cu``, which runs every fit inside the
+kernel as XLA runs the JAX package's ``fori_loop`` on the device; on a
+CPU tensor its plain version :func:`_blanker_fits_reference`, which runs
+``max_pulses`` iterations of small tensor operations.  There is no
+fallback between the two.  It is a PyTorch custom operator with a rule
+for ``torch.func.vmap``: a fleet of R receivers makes one launch of R
+blocks.
+
+The flat search (``block_size=0``, a cross-check that no preset selects)
+and the round-parallel variant (``rounds>0``, which fits every locally
+dominant block's strongest candidate at once, ``rounds`` times) stay in
+PyTorch: their loops run on device tensors, every dynamic position an
+index tensor, so they never wait for the host, and ``torch.func.vmap``
+batches their in-place ``index_put_``.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..geometry import Geometry
+from ..utils import cuda_build
 from ..utils.segments import segment_max
 
 MAX_REFPULSES = 256  # fractional-shift bank depth (blnkdef.h:13)
@@ -233,11 +245,11 @@ def _clever_blanker_blocked(weak, pwr, tables, noise_floor, limit_amp,
                             pulsewidth, max_pulses, blk, eligible=None):
     """Hierarchical candidate search: block maxima kept up to date so each
     iteration reads O(S/blk + blk) values.  Selection order matches the
-    flat scan (the global argmax is the argmax over block maxima)."""
+    flat scan (the global argmax is the argmax over block maxima).  The
+    padding, the candidate power and its block maxima are built here; the
+    fits are :func:`blanker_fits`."""
     s, _c = weak.shape
-    dev = weak.device
     pul = tables.refbank.shape[1]
-    half = pul // 2
     pw = pulsewidth
     if not pul + 2 * pw + 1 < blk:
         raise ValueError(f"blanker block {blk} too small for pulse "
@@ -248,10 +260,33 @@ def _clever_blanker_blocked(weak, pwr, tables, noise_floor, limit_amp,
     trail = total - s - lead
     wpad = _pad_rows(weak, lead, trail)
     ppad = _pad_rows(pwr, lead, trail)
-    active = _pad_rows(_active(s, dev, eligible), lead, trail, False)
+    active = _pad_rows(_active(s, weak.device, eligible), lead, trail, False)
     candp = torch.where(active, ppad, -1.0)
-    nblk = total // blk
-    bmax = candp.reshape(nblk, blk).amax(1)
+    bmax = candp.reshape(total // blk, blk).amax(1)
+    return blanker_fits(wpad, ppad, candp, bmax, tables.refbank,
+                        tables.phasefunc, thr, pw, max_pulses, lead, s)
+
+
+# ---- the sequential fits: the kernel's wrapper and its plain version ----
+
+FITS_THREADS = 256      # the kernel's block (kThreads)
+# launches of csrc/blanker_fits.cu, made and recorded into CUDA graphs
+fits_count = cuda_build.LaunchCount()
+
+
+def _blanker_fits_reference(wpad, ppad, candp, bmax, refbank, phasefunc,
+                            thr, pw: int, max_pulses: int, lead: int,
+                            s: int):
+    """Plain PyTorch version of :func:`blanker_fits`: ``max_pulses``
+    iterations of the blocked search's fit loop (JAX
+    ``_clever_blanker_blocked``'s ``fori_loop``) on copies of the padded
+    arrays, updated in place."""
+    wpad, ppad, candp, bmax = (x.clone() for x in (wpad, ppad, candp, bmax))
+    tables = BlankerTables(refbank=refbank, phasefunc=phasefunc)
+    dev = wpad.device
+    nblk = bmax.shape[0]
+    blk = wpad.shape[0] // nblk
+    half = refbank.shape[1] // 2
     two = torch.arange(2, device=dev)
     win2 = torch.arange(2 * blk, device=dev)
     nfit = torch.zeros((), dtype=torch.int32, device=dev)
@@ -275,6 +310,166 @@ def _clever_blanker_blocked(weak, pwr, tables, noise_floor, limit_amp,
         bmax.index_put_((b0 + two,), cwin2.reshape(2, blk).amax(1))
         nfit = nfit + success.to(torch.int32)
     return wpad[lead: lead + s], ppad[lead: lead + s], nfit
+
+
+def _check_fits(wpad, ppad, candp, bmax, refbank, phasefunc, thr, pw,
+                max_pulses, lead, s) -> None:
+    if wpad.dim() != 2 or wpad.dtype != torch.complex64:
+        raise ValueError(f"blanker_fits: wpad must be (T, C) complex64, got "
+                         f"{tuple(wpad.shape)} {wpad.dtype}")
+    total, c = wpad.shape
+    for name, x in (("ppad", ppad), ("candp", candp)):
+        if x.dtype != torch.float32 or tuple(x.shape) != (total,):
+            raise ValueError(f"blanker_fits: {name} must be ({total},) "
+                             f"float32, got {tuple(x.shape)} {x.dtype}")
+    if bmax.dtype != torch.float32 or bmax.dim() != 1 \
+            or bmax.shape[0] < 2 or total % bmax.shape[0]:
+        raise ValueError(f"blanker_fits: bmax {tuple(bmax.shape)} "
+                         f"{bmax.dtype} is not float32 block maxima of "
+                         f"{total} samples")
+    if refbank.dim() != 2 or refbank.dtype != torch.complex64 \
+            or phasefunc.dtype != torch.complex64 \
+            or tuple(phasefunc.shape) != (refbank.shape[1],):
+        raise ValueError(f"blanker_fits: refbank {tuple(refbank.shape)} / "
+                         f"phasefunc {tuple(phasefunc.shape)} must be "
+                         f"complex64 (nref, pul) / (pul,)")
+    if thr.dtype != torch.float32 or thr.dim() != 0:
+        raise ValueError("blanker_fits: thr must be a 0-dim float32 tensor")
+    pul = refbank.shape[1]
+    blk = total // bmax.shape[0]
+    if pul * c > FITS_THREADS or not 0 <= pw < pul // 2 \
+            or not pul + 2 * pw + 1 < blk or max_pulses < 0 \
+            or lead < 0 or s < 0 or lead + s > total:
+        raise ValueError(f"blanker_fits: unsupported pulse {pul}, width "
+                         f"{pw}, channels {c}, block {blk}, max_pulses "
+                         f"{max_pulses} or rows {lead}:{lead + s} of "
+                         f"{total}")
+    devices = {x.device for x in (wpad, ppad, candp, bmax, refbank,
+                                  phasefunc, thr)}
+    if len(devices) != 1:
+        raise ValueError(f"blanker_fits: tensors on different devices "
+                         f"{sorted(map(str, devices))}")
+    # meta: the fake tensors of a trace, which reach only the fake
+    if wpad.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"blanker_fits: unsupported device {wpad.device}")
+
+
+@functools.lru_cache(maxsize=1)
+def _fits_fn():
+    """The C launcher of csrc/blanker_fits.cu, built at first use."""
+    lib, _info = cuda_build.build("blanker_fits")
+    fn = lib.lrt_blanker_fits
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 4
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _fits_launch(wpad, ppad, candp, bmax, refbank, phasefunc, thr,
+                 shared: tuple, pw: int, max_pulses: int, lead: int,
+                 s: int):
+    """One launch for R streams: wpad (R, T, C), ppad and candp (R, T),
+    bmax (R, nblk); refbank, phasefunc and thr with a leading stream axis
+    of R, or without it where ``shared`` (three flags) says they serve
+    every stream.  Returns (weak (R, S, C), pwr (R, S), nfit (R,))."""
+    dev = wpad.device
+    r, total, c = wpad.shape
+    nref, pul = refbank.shape[-2:]
+    # the kernel's working copies: the arguments stay as they are
+    wk = wpad.clone(memory_format=torch.contiguous_format)
+    pk = ppad.clone(memory_format=torch.contiguous_format)
+    ck = candp.clone(memory_format=torch.contiguous_format)
+    bmax, refbank, phasefunc, thr = (
+        x.contiguous() for x in (bmax, refbank, phasefunc, thr))
+    if (refbank.data_ptr() | phasefunc.data_ptr()) % 8:
+        raise ValueError("blanker_fits: tables must be 8-byte aligned")
+    nfit = torch.empty(r, dtype=torch.int32, device=dev)
+    strides = [0 if sh else x[0].numel()
+               for sh, x in zip(shared, (refbank, phasefunc, thr))]
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    cuda_build.launch(_fits_fn(), (
+        wk.data_ptr(), pk.data_ptr(), ck.data_ptr(), bmax.data_ptr(),
+        refbank.data_ptr(), phasefunc.data_ptr(), thr.data_ptr(),
+        nfit.data_ptr(), bmax.shape[-1], *strides, total, c, bmax.shape[-1],
+        pul, nref, pw, max_pulses, r, stream), dev,
+        f"blanker_fits at ({r}, {total}, {c})")
+    fits_count.add()
+    return wk[:, lead: lead + s], pk[:, lead: lead + s], nfit
+
+
+@torch.library.custom_op("linrad_tpu_torch::blanker_fits", mutates_args=())
+def blanker_fits(wpad: torch.Tensor, ppad: torch.Tensor, candp: torch.Tensor,
+                 bmax: torch.Tensor, refbank: torch.Tensor,
+                 phasefunc: torch.Tensor, thr: torch.Tensor, pw: int,
+                 max_pulses: int, lead: int,
+                 s: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The blocked clever blanker's sequential fits.
+
+    wpad (T, C) complex64, ppad (T,) float32: the stream and its power,
+    padded to T samples, a whole number of blocks; candp (T,) float32:
+    the power where a candidate centre may lie, -1 elsewhere; bmax
+    (T / block,) float32: its block maxima; refbank (nref, pul) and
+    phasefunc (pul,) complex64: the blanker's tables; thr: the 0-dim
+    float32 threshold on the device; pw: the pulse width; up to
+    ``max_pulses`` fits.  Returns (weak (S, C), pwr (S,): rows
+    ``lead:lead + s`` after the fits, fitted count (0-dim int32)).  No
+    argument is changed.
+
+    A PyTorch custom operator (``torch.ops.linrad_tpu_torch.blanker_fits``)
+    with a rule for ``torch.func.vmap``: R streams make one launch of R
+    blocks (:func:`_blanker_fits_vmap`).  Its launches are counted in
+    ``fits_count``."""
+    _check_fits(wpad, ppad, candp, bmax, refbank, phasefunc, thr, pw,
+                max_pulses, lead, s)
+    if wpad.device.type == "cpu":
+        return _blanker_fits_reference(wpad, ppad, candp, bmax, refbank,
+                                       phasefunc, thr, pw, max_pulses, lead,
+                                       s)
+    weak, pwr, nfit = _fits_launch(
+        wpad[None], ppad[None], candp[None], bmax[None], refbank, phasefunc,
+        thr, (True, True, True), pw, max_pulses, lead, s)
+    return weak[0], pwr[0], nfit[0]
+
+
+@blanker_fits.register_fake
+def _blanker_fits_fake(wpad, ppad, candp, bmax, refbank, phasefunc, thr, pw,
+                       max_pulses, lead, s):
+    _check_fits(wpad, ppad, candp, bmax, refbank, phasefunc, thr, pw,
+                max_pulses, lead, s)
+    # rows lead:lead + s of the padded copies, as the real outputs are
+    return (wpad.new_empty(wpad.shape)[lead: lead + s],
+            ppad.new_empty(ppad.shape)[lead: lead + s],
+            ppad.new_empty((), dtype=torch.int32))
+
+
+@blanker_fits.register_vmap
+def _blanker_fits_vmap(info, in_dims, wpad, ppad, candp, bmax, refbank,
+                       phasefunc, thr, pw, max_pulses, lead, s):
+    """R streams: on the card one launch of R blocks, each stream's own
+    arrays and threshold, the tables per stream or shared; on the CPU the
+    plain version once per stream."""
+    r = info.batch_size
+
+    def lead_axis(x, dim):
+        return x.movedim(dim, 0) if dim is not None \
+            else x.expand((r,) + tuple(x.shape))
+
+    data = [lead_axis(x, d) for x, d in zip((wpad, ppad, candp, bmax),
+                                            in_dims[:4])]
+    tabs = [x.movedim(d, 0) if d is not None else x
+            for x, d in zip((refbank, phasefunc, thr), in_dims[4:7])]
+    shared = tuple(d is None for d in in_dims[4:7])
+    _check_fits(*(x[0] for x in data),
+                *(t if h else t[0] for t, h in zip(tabs, shared)), pw,
+                max_pulses, lead, s)
+    if wpad.device.type == "cpu":
+        outs = [_blanker_fits_reference(
+            *(x[i] for x in data),
+            *(t if h else t[i] for t, h in zip(tabs, shared)), pw,
+            max_pulses, lead, s) for i in range(r)]
+        return tuple(torch.stack(v) for v in zip(*outs)), (0, 0, 0)
+    return _fits_launch(*data, *tabs, shared, pw, max_pulses, lead,
+                        s), (0, 0, 0)
 
 
 def _clever_blanker_parallel(weak, pwr, tables, noise_floor, limit_amp,

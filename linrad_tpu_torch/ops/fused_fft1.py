@@ -11,7 +11,8 @@ launch (:func:`_fused_fft1_vmap`).
 
 The kernel is built with ``nvcc`` for ``sm_90a`` at first use into
 ``build/linrad_tpu_torch/`` under the repository root and loaded with
-``ctypes`` (a plain C entry point; no PyTorch headers).
+``ctypes`` (a plain C entry point; no PyTorch headers), by
+``utils/cuda_build.py``.
 
 What the kernel leaves to Python is here, as pure functions the CPU tests
 reach: :func:`radix_plan` (the factorisation of N into radix-8 and
@@ -24,15 +25,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import numpy as np
 import torch
+
+from ..utils import cuda_build
 
 MIN_SIZE = 128
 MAX_SIZE = 4096
@@ -48,49 +45,16 @@ H100_SMS = 132
 # sum and were slower.
 MAX_BLOCKS_PER_SM = 4
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "fused_fft1.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "linrad_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("fused_fft1: nvcc not found (PATH, CUDA_HOME or "
-                       "/usr/local/cuda/bin); the CUDA kernel cannot be "
-                       "built")
-
 
 @functools.lru_cache(maxsize=1)
 def build() -> tuple[ctypes.CDLL, dict]:
-    """Compile (once per source version) and load the kernel library.
+    """Compile (once per source version) and load the kernel library
+    (``utils/cuda_build.build``), with the C functions' argument types.
 
     Returns (library, info) where info holds the library path, the build
     seconds (0.0 when an earlier build of the same source was reused) and
     the compiler's output (``-Xptxas -v``: registers, shared memory)."""
-    src = _SRC.read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib_path = BUILD_DIR / f"libfused_fft1_{digest[:12]}.so"
-    info = {"path": str(lib_path), "build_seconds": 0.0, "log": ""}
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(_SRC)], capture_output=True, text=True)
-        info["build_seconds"] = time.perf_counter() - t0
-        info["log"] = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"fused_fft1: nvcc failed "
-                               f"({proc.returncode}):\n{info['log']}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    lib, info = cuda_build.build("fused_fft1")
     fn = lib.lrt_fused_fft1
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
@@ -291,14 +255,7 @@ def _fused_fft1_op(frames: torch.Tensor, window: torch.Tensor,
     args = (frames.data_ptr(), window.data_ptr(), filtercorr.data_ptr(),
             st.twiddle_ptr, spec.data_ptr(), psum.data_ptr(), *st.tail,
             stream)
-    if dev.index == torch.cuda.current_device():
-        err = st.fn(*args)
-    else:
-        with torch.cuda.device(dev):
-            err = st.fn(*args)
-    if err != 0:
-        raise RuntimeError(f"fused_fft1: kernel launch failed with CUDA "
-                           f"error {err} at shape {(b, n, c)}")
+    cuda_build.launch(st.fn, args, dev, f"fused_fft1 at shape {(b, n, c)}")
     if torch.cuda.is_current_stream_capturing():
         # recorded into a CUDA graph, nothing launched: whoever replays the
         # graph counts its launches
@@ -345,12 +302,9 @@ def empty_launch(device: torch.device) -> None:
     """Launch the library's empty kernel on the device's current stream:
     the yardstick for what any kernel launch costs."""
     lib, _ = build()
-    with torch.cuda.device(device):
-        err = lib.lrt_empty_launch(
-            torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_fft1: empty launch failed with CUDA "
-                           f"error {err}")
+    cuda_build.launch(lib.lrt_empty_launch,
+                      (torch.cuda.current_stream(device).cuda_stream,),
+                      torch.device(device), "fused_fft1's empty kernel")
 
 
 fused_fft1.launches = 0

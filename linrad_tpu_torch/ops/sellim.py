@@ -8,17 +8,27 @@ sellim.c:738-1157).  The liminfo contract (sellim.c:757-763):
     liminfo[i]  > 0  => bin to strong channel scaled by liminfo[i]
 
 The steps and their order are those of the JAX version; see its module
-docstring for the reference line numbers of each.
+docstring for the reference line numbers of each.  Step 4's edge taper,
+a ``fori_loop`` of ``TAPER_STEPS`` passes there, is :func:`sellim_taper`:
+on a CUDA tensor one launch of the hand-written kernel in
+``csrc/sellim_taper.cu``, which runs every pass inside the kernel; on a
+CPU tensor its plain version :func:`_sellim_taper_reference`.  There is
+no fallback between the two.  It is a PyTorch custom operator with a rule
+for ``torch.func.vmap``: a fleet of R receivers makes one launch of R
+blocks.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..geometry import Geometry
+from ..utils import cuda_build
 from ..utils.segments import segment_max, segment_min, segment_sum
 from .windows import make_window
 
@@ -115,18 +125,10 @@ def update_liminfo(geo: Geometry, state: SellimState,
     gain = torch.where(smooth, 0.8 * old_gain + 0.2 * gain, gain)
     lim = torch.where(strong, gain, 0.0)
 
-    # 4. edge taper t^0.9 over (width/4)+1 extra bins; a fixed number of
-    # passes over device tensors (no host sync per pass)
+    # 4. edge taper t^0.9 over (width/4)+1 extra bins
     width = segment_sum(torch.ones_like(p), strong)
     budget = torch.where(strong, width / 4.0 + 1.0, 0.0)
-    for _ in range(TAPER_STEPS):
-        bl = _shift_right(budget)
-        br = _shift_left(budget)
-        cand = torch.maximum(torch.where(bl >= 1.0, _shift_right(lim), 0.0),
-                             torch.where(br >= 1.0, _shift_left(lim), 0.0))
-        new = (lim == 0.0) & (cand > 0.0)
-        lim = torch.where(new, cand ** 0.9, lim)
-        budget = torch.where(new, torch.maximum(bl - 1.0, br - 1.0), budget)
+    lim = sellim_taper(lim, budget)
 
     # 5. noise floor: groups -> mean of 3 smallest (sellim.c:891-917)
     small3 = torch.topk(p.reshape(groups, n // groups), 3, dim=1,
@@ -170,6 +172,125 @@ def update_liminfo(geo: Geometry, state: SellimState,
         lim = torch.where(in_sel, 0.0, lim)
         wait = torch.where(in_sel, 0, wait)
     return SellimState(liminfo=lim, liminfo_wait=wait)
+
+
+# ---- the edge taper: the kernel's wrapper and its plain version ---------
+
+def _taper_pass(lim: torch.Tensor, budget: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One pass of the taper (the JAX ``taper_body``): (lim, budget)."""
+    bl = _shift_right(budget)
+    br = _shift_left(budget)
+    cand = torch.maximum(torch.where(bl >= 1.0, _shift_right(lim), 0.0),
+                         torch.where(br >= 1.0, _shift_left(lim), 0.0))
+    new = (lim == 0.0) & (cand > 0.0)
+    lim = torch.where(new, cand ** 0.9, lim)
+    budget = torch.where(new, torch.maximum(bl - 1.0, br - 1.0), budget)
+    return lim, budget
+
+
+def _sellim_taper_reference(lim: torch.Tensor,
+                            budget: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`sellim_taper`: ``TAPER_STEPS``
+    passes of small tensor operations."""
+    for _ in range(TAPER_STEPS):
+        lim, budget = _taper_pass(lim, budget)
+    return lim
+
+
+TAPER_SHARED_MAX_N = 16_384     # the kernel's kSharedMaxN
+# launches of csrc/sellim_taper.cu, made and recorded into CUDA graphs
+taper_count = cuda_build.LaunchCount()
+
+
+def _check_taper(lim: torch.Tensor, budget: torch.Tensor) -> None:
+    if lim.dtype != torch.float32 or budget.dtype != torch.float32 \
+            or lim.dim() != 1 or lim.shape != budget.shape \
+            or lim.shape[0] == 0:
+        raise ValueError(f"sellim_taper: lim and budget must be (n,) "
+                         f"float32, got {tuple(lim.shape)} {lim.dtype} / "
+                         f"{tuple(budget.shape)} {budget.dtype}")
+    if lim.device != budget.device:
+        raise ValueError("sellim_taper: tensors on different devices")
+    # meta: the fake tensors of a trace, which reach only the fake
+    if lim.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"sellim_taper: unsupported device {lim.device}")
+
+
+@functools.lru_cache(maxsize=1)
+def _taper_fn():
+    """The C launcher of csrc/sellim_taper.cu, built at first use."""
+    lib, _info = cuda_build.build("sellim_taper")
+    fn = lib.lrt_sellim_taper
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _taper_launch(lim: torch.Tensor, budget: torch.Tensor) -> torch.Tensor:
+    """One launch for R streams: lim and budget (R, n), or (n,) for one
+    stream; a (n,) budget under a (R, n) lim serves every stream."""
+    dev = lim.device
+    n = lim.shape[-1]
+    r = lim.shape[0] if lim.dim() == 2 else 1
+    lim = lim.contiguous()
+    budget = budget.contiguous()
+    out = torch.empty((r, n), dtype=torch.float32, device=dev)
+    scratch = torch.empty(4 * r * n if n > TAPER_SHARED_MAX_N else 0,
+                          dtype=torch.float32, device=dev)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    cuda_build.launch(_taper_fn(), (
+        lim.data_ptr(), budget.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), n if lim.dim() == 2 else 0,
+        n if budget.dim() == 2 else 0, n, TAPER_STEPS, r, stream), dev,
+        f"sellim_taper at ({r}, {n})")
+    taper_count.add()
+    return out
+
+
+@torch.library.custom_op("linrad_tpu_torch::sellim_taper", mutates_args=())
+def sellim_taper(lim: torch.Tensor, budget: torch.Tensor) -> torch.Tensor:
+    """Sellim's edge taper (``update_liminfo`` step 4).
+
+    lim (n,) float32: the gains, 0 on weak bins; budget (n,) float32: the
+    extra bins each strong bin may still hand on.  ``TAPER_STEPS`` passes,
+    each giving every weak bin beside a strong one with budget left that
+    bin's gain to the power 0.9 and one bin less of budget
+    (edge-replicated neighbours).  Returns the new lim; no argument is
+    changed.
+
+    A PyTorch custom operator (``torch.ops.linrad_tpu_torch.sellim_taper``)
+    with a rule for ``torch.func.vmap``: R streams make one launch of R
+    blocks (:func:`_sellim_taper_vmap`).  Its launches are counted in
+    ``taper_count``."""
+    _check_taper(lim, budget)
+    if lim.device.type == "cpu":
+        return _sellim_taper_reference(lim, budget)
+    return _taper_launch(lim, budget)[0]
+
+
+@sellim_taper.register_fake
+def _sellim_taper_fake(lim, budget):
+    _check_taper(lim, budget)
+    return torch.empty_like(lim)
+
+
+@sellim_taper.register_vmap
+def _sellim_taper_vmap(info, in_dims, lim, budget):
+    """R streams: on the card one launch of R blocks; on the CPU the plain
+    version once per stream."""
+    r = info.batch_size
+    l_dim, b_dim = in_dims
+    lim = lim.movedim(l_dim, 0) if l_dim is not None \
+        else lim.expand((r,) + tuple(lim.shape))
+    budget = budget.movedim(b_dim, 0) if b_dim is not None else budget
+    _check_taper(lim[0], budget[0] if b_dim is not None else budget)
+    if lim.device.type == "cpu":
+        return torch.stack([
+            _sellim_taper_reference(lim[i], budget[i] if b_dim is not None
+                                    else budget) for i in range(r)]), 0
+    return _taper_launch(lim, budget), 0
 
 
 def liminfo_gains(liminfo: torch.Tensor

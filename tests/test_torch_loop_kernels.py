@@ -1,0 +1,440 @@
+"""The two device loops of the main path that the port runs as hand-written
+kernels on the card: the blocked clever blanker's sequential fits
+(``ops/blanker.py:blanker_fits``, ``csrc/blanker_fits.cu``) and sellim's
+edge taper (``ops/sellim.py:sellim_taper``, ``csrc/sellim_taper.cu``).
+
+On the CPU each wrapper runs its plain version, so these tests hold:
+
+- the wrappers, through ``clever_blanker`` and ``update_liminfo``, against
+  the JAX package at full width (fitted counts and liminfo signs exact,
+  floats within FP32: both sides compute the same float32 formulas in
+  another order);
+- the property both kernels' early exits rest on: once the blanker's best
+  candidate is at or under the threshold, and once a taper pass changes no
+  bin, every later iteration changes nothing, bit for bit;
+- the vmap rules (one launch of R blocks on the card, the plain version
+  per stream here) bit-equal to separate calls;
+- what the wrappers refuse.
+
+The kernels themselves run on the card only: ``chip_smoke.py``'s loop
+kernel phase holds them against these plain versions there.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from __graft_entry__ import _flagship_params
+from linrad_tpu import RxMode, derive_geometry, preset
+from linrad_tpu.ops import blanker as jbl
+from linrad_tpu.ops import sellim as jsellim
+from linrad_tpu_torch import convert
+from linrad_tpu_torch import derive_geometry as t_derive_geometry
+from linrad_tpu_torch.ops import blanker as tbl
+from linrad_tpu_torch.ops import sellim as tsellim
+from linrad_tpu_torch.utils import cuda_build
+
+FP32 = 1e-5
+CPU = "cpu"
+S = 65_536                   # the flagship's samples per step
+NOISE_FLOOR = np.float32(100.0)
+LIMIT_AMP = 6.0              # the flagship's clever_bln_limit
+
+
+def _rel(a, b) -> float:
+    a = np.asarray(a).astype(np.complex128)
+    b = np.asarray(b).astype(np.complex128)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    return float(np.max(np.abs(a - b))
+                 / max(np.max(np.abs(a)), np.max(np.abs(b)), 1e-30))
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+FLAGSHIP = _flagship_params()
+GEO = derive_geometry(FLAGSHIP)
+BANK, PHASEFUNC, PW = jbl.make_refpulse_bank(np.ones(GEO.fft1_size), 64)
+
+
+def _weak_stream(seed: int, channels: int, n_pulses: int, impulses: int):
+    """The weak channel as the blanker sees it at the flagship: noise of
+    sigma 10, band-limited pulses of the reference bank's shape (the
+    impulses after timf2) with a random amplitude, phase, sub-sample
+    offset and, on two channels, polarization, and single-sample
+    impulses of 3,000."""
+    rng = np.random.default_rng(seed)
+    x = 10.0 * (rng.normal(size=(S, channels))
+                + 1j * rng.normal(size=(S, channels)))
+    for pos in rng.integers(100, S - 100, size=n_pulses):
+        row = BANK[rng.integers(0, BANK.shape[0])]
+        amp = 3000.0 * rng.uniform(0.3, 1.5) \
+            * np.exp(2j * np.pi * rng.random(channels))
+        x[pos - 32: pos + 32] += row[:, None] * amp[None, :] \
+            * (1.0 if channels == 1 else rng.uniform(0.2, 1.0, channels))
+    pos = rng.integers(0, S, size=impulses)
+    x[pos] += 3000.0 * np.exp(2j * np.pi * rng.random((impulses, channels)))
+    weak = x.astype(np.complex64)
+    pwr = (np.abs(weak) ** 2).sum(1).astype(np.float32)
+    return weak, pwr
+
+
+def _eligible() -> np.ndarray:
+    """A time shard's mask: halos of 2,048 samples at both ends."""
+    mask = np.ones(S, bool)
+    mask[:2048] = mask[-2048:] = False
+    return mask
+
+
+# one JAX run per case: (channels, pulses, impulses, eligible)
+BLANKER_CASES = {
+    "flagship": (1, 40, 40, False),
+    "two-channel": (2, 30, 20, False),
+    "eligible": (1, 40, 40, True),
+}
+# fewer pulses, so that the candidates run out before the 64th fit
+LIGHT_CASES = {
+    "one-channel": (1, 10, 10, False),
+    "two-channel": (2, 10, 5, False),
+    "eligible": (1, 10, 10, True),
+}
+
+
+def _light_input(case: str):
+    c, n_pulses, impulses, elig = LIGHT_CASES[case]
+    weak, pwr = _weak_stream(5, c, n_pulses, impulses)
+    return weak, pwr, _eligible() if elig else None
+
+
+@pytest.fixture(scope="module")
+def blanker_runs():
+    j_tab = jbl.BlankerTables(refbank=jnp.asarray(BANK),
+                              phasefunc=jnp.asarray(PHASEFUNC))
+    runs = {}
+    for name, (c, n_pulses, impulses, elig) in BLANKER_CASES.items():
+        weak, pwr = _weak_stream(len(runs), c, n_pulses, impulses)
+        eligible = _eligible() if elig else None
+
+        def fn(w, p, f, e):
+            return jbl.clever_blanker(w, p, j_tab, f, LIMIT_AMP, PW, 64,
+                                      block_size=256, eligible=e)
+
+        out = jax.jit(fn)(jnp.asarray(weak), jnp.asarray(pwr),
+                          jnp.asarray(NOISE_FLOOR),
+                          None if eligible is None else jnp.asarray(eligible))
+        runs[name] = (weak, pwr, eligible,
+                      tuple(np.asarray(x) for x in out))
+    return runs
+
+
+def _t_tables():
+    return tbl.BlankerTables(refbank=_t(BANK), phasefunc=_t(PHASEFUNC))
+
+
+@pytest.mark.parametrize("case", list(BLANKER_CASES))
+def test_blanker_fits_against_jax(blanker_runs, case):
+    """clever_blanker(block_size=256) through blanker_fits (its plain
+    version on the CPU) against the JAX blocked blanker at 65,536 samples
+    and 64 fits: nfit exact, weak and pwr within FP32."""
+    weak, pwr, eligible, (jw, jp, jn) = blanker_runs[case]
+    tw, tp, tn = tbl.clever_blanker(
+        _t(weak), _t(pwr), _t_tables(), torch.tensor(NOISE_FLOOR),
+        LIMIT_AMP, PW, 64, block_size=256,
+        eligible=None if eligible is None else _t(eligible))
+    assert tn.dtype == torch.int32 and tn.shape == ()
+    assert int(tn) == int(jn) > 10
+    assert tw.shape == weak.shape and tp.shape == pwr.shape
+    assert _rel(tw.numpy(), jw) <= FP32
+    assert _rel(tp.numpy(), jp) <= FP32
+
+
+def _fits_args(weak, pwr, eligible=None, blk=256):
+    """blanker_fits' arguments as _clever_blanker_blocked builds them."""
+    pul = BANK.shape[1]
+    lead = pul
+    total = max(-(-(S + 2 * pul) // blk) * blk, 2 * blk)
+    trail = total - S - lead
+    wpad = tbl._pad_rows(_t(weak), lead, trail)
+    ppad = tbl._pad_rows(_t(pwr), lead, trail)
+    act = torch.ones(S, dtype=torch.bool) if eligible is None \
+        else _t(eligible)
+    active = tbl._pad_rows(act, lead, trail, False)
+    candp = torch.where(active, ppad, -1.0)
+    bmax = candp.reshape(total // blk, blk).amax(1)
+    thr = tbl._threshold(LIMIT_AMP, torch.tensor(NOISE_FLOOR))
+    return (wpad, ppad, candp, bmax, _t(BANK), _t(PHASEFUNC), thr), lead
+
+
+@pytest.mark.parametrize("case", list(LIGHT_CASES))
+def test_blanker_fits_stop_at_last_candidate(case, monkeypatch):
+    """The kernel stops at the first iteration whose candidate is at or
+    under the threshold.  In the plain version every iteration from there
+    on is invalid and leaves the state as it was: with max_pulses at the
+    count of valid iterations M, at M + 16 and at 64 the results are the
+    same bits."""
+    weak, pwr, eligible = _light_input(case)
+    args, lead = _fits_args(weak, pwr, eligible)
+    valid = []
+    fit_subtract = tbl._fit_subtract
+
+    def recording(wpad, ppad, tables, pw, p, ok):
+        valid.append(bool(ok))
+        return fit_subtract(wpad, ppad, tables, pw, p, ok)
+
+    monkeypatch.setattr(tbl, "_fit_subtract", recording)
+    full = tbl._blanker_fits_reference(*args, PW, 64, lead, S)
+    m = sum(valid)
+    assert 10 < m < 64 - 16
+    assert valid == [True] * m + [False] * (64 - m)
+    monkeypatch.setattr(tbl, "_fit_subtract", fit_subtract)
+    for steps in (m, m + 16):
+        got = tbl._blanker_fits_reference(*args, PW, steps, lead, S)
+        assert all(torch.equal(a, b) for a, b in zip(got, full)), steps
+    before = [x.clone() for x in args]
+    tbl.blanker_fits(*args, PW, 64, lead, S)
+    assert all(torch.equal(a, b) for a, b in zip(args, before))
+
+
+def test_blanker_fits_vmap():
+    """Three streams under torch.func.vmap (a fleet), each with its own
+    threshold: the rule's result bit-equal to three separate calls."""
+    weak, pwr, _ = _light_input("one-channel")
+    streams = [(weak, pwr), (0.5 * weak, 0.25 * pwr),
+               (weak[::-1].copy(), pwr[::-1].copy())]
+    floors = torch.tensor([100.0, 30.0, 1e5])
+    ws = torch.stack([_t(w) for w, _ in streams])
+    ps = torch.stack([_t(p) for _, p in streams])
+    tab = _t_tables()
+
+    def one(w, p, f):
+        return tbl.clever_blanker(w, p, tab, f, LIMIT_AMP, PW, 64)
+
+    got = torch.func.vmap(one)(ws, ps, floors)
+    for i in range(3):
+        want = one(ws[i], ps[i], floors[i])
+        assert all(torch.equal(a[i], b) for a, b in zip(got, want)), i
+    assert len({int(n) for n in got[2]}) > 1
+
+
+# ---- sellim's taper --------------------------------------------------
+
+def _geometries():
+    """(name, JAX params) at fft1 2,048 (flagship), 8,192 (WCW) and
+    16,384 (QRSS)."""
+    return {"flagship": FLAGSHIP, "wcw": preset(RxMode.WCW),
+            "qrss": preset(RxMode.QRSS)}
+
+
+def _carrier_spectrum(rng, n, step, wide=True):
+    """An averaged power spectrum with strong carriers of several widths
+    (narrow ones and, when ``wide``, one of about a ninetieth of the band
+    whose budget lasts every pass from fft1 8,192 on), weaker ones that
+    sellim marks at unit gain, and noise."""
+    k = np.arange(n)
+    p = 1e3 * rng.chisquare(4, size=n) / 4
+    carriers = [(n // 5 + step, 3e11, 1.5), (3 * n // 4, 5e9, 0.7)]
+    if wide:
+        carriers.append((n // 2 + n // 7, 1e12, n / 90))
+    for centre, height, width in carriers:
+        p += height * np.exp(-0.5 * ((k - centre) / width) ** 2)
+    for centre in (n // 3 + 2 * step, n // 2 + 7, n - 9):
+        p[centre % n] += 8e4 * (1 + step)
+    return p.astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def taper_runs():
+    """Three successive updates per geometry through JAX's update_liminfo
+    (jitted), with the spectra fed."""
+    runs = {}
+    for name, params in _geometries().items():
+        geo = derive_geometry(params)
+        n = geo.fft1_size
+        rng = np.random.default_rng(n)
+        upd = jax.jit(lambda s, p, lo, hi, geo=geo: jsellim.update_liminfo(
+            geo, s, p, 8.0, ston=30.0, sel_lo=lo, sel_hi=hi))
+        st = jsellim.SellimState.create(geo)
+        steps = []
+        for step in range(3):
+            p = _carrier_spectrum(rng, n, step)
+            lo, hi = n // 8, n // 8 + 6
+            st = upd(st, jnp.asarray(p), jnp.int32(lo), jnp.int32(hi))
+            steps.append((p, lo, hi, np.asarray(st.liminfo),
+                          np.asarray(st.liminfo_wait)))
+        runs[name] = (params, steps)
+    return runs
+
+
+def _t_update(params, steps):
+    """The port's update_liminfo over the same spectra; yields its states."""
+    tgeo = t_derive_geometry(convert.params_from_jax(params))
+    st = tsellim.SellimState.create(tgeo, CPU)
+    for p, lo, hi, _jl, _jw in steps:
+        st = tsellim.update_liminfo(tgeo, st, _t(p), 8.0, ston=30.0,
+                                    sel_lo=torch.tensor(lo),
+                                    sel_hi=torch.tensor(hi))
+        yield st
+
+
+@pytest.mark.parametrize("name", ["flagship", "wcw", "qrss"])
+def test_taper_through_update_liminfo(taper_runs, name):
+    """update_liminfo through sellim_taper against JAX's: liminfo signs and
+    liminfo_wait exact, gains within FP32, tapered skirts present."""
+    params, steps = taper_runs[name]
+    for st, (_p, _lo, _hi, jl, jw) in zip(_t_update(params, steps), steps):
+        tl = st.liminfo.numpy()
+        np.testing.assert_array_equal(np.sign(tl), np.sign(jl))
+        np.testing.assert_array_equal(st.liminfo_wait.numpy(), jw)
+        assert _rel(tl, jl) <= FP32
+        assert (jl > 0).sum() > 20
+
+
+def _taper_inputs(params, steps):
+    """The (lim, budget) each update hands sellim_taper."""
+    seen = []
+    real = tsellim.sellim_taper
+
+    def recording(lim, budget):
+        seen.append((lim.clone(), budget.clone()))
+        return real(lim, budget)
+
+    tsellim.sellim_taper = recording
+    try:
+        list(_t_update(params, steps))
+    finally:
+        tsellim.sellim_taper = real
+    return seen
+
+
+@pytest.mark.parametrize("name", ["flagship", "wcw", "qrss"])
+def test_taper_stops_after_a_pass_without_change(name):
+    """The kernel ends after the first pass that changes no bin: the plain
+    version stopped there gives the same bits as all 64 passes (on
+    carriers whose budgets run out before the 64th)."""
+    params = _geometries()[name]
+    n = derive_geometry(params).fft1_size
+    rng = np.random.default_rng(n + 1)
+    steps = [(_carrier_spectrum(rng, n, step, wide=False), n // 8,
+              n // 8 + 6, None, None) for step in range(3)]
+    for lim, budget in _taper_inputs(params, steps):
+        full = tsellim._sellim_taper_reference(lim, budget)
+        prev, left = lim, budget
+        for k in range(1, tsellim.TAPER_STEPS + 1):
+            cur, left = tsellim._taper_pass(prev, left)
+            if torch.equal(cur, prev):
+                break
+            prev = cur
+        assert 1 < k < tsellim.TAPER_STEPS, k
+        assert torch.equal(prev, full)
+        assert torch.equal(tsellim.sellim_taper(lim, budget), full)
+
+
+def test_taper_vmap(taper_runs):
+    """Three streams under torch.func.vmap, and a budget shared by all:
+    bit-equal to separate calls."""
+    params, steps = taper_runs["flagship"]
+    (l0, b0), (l1, b1), (l2, b2) = _taper_inputs(params, steps)
+    lims = torch.stack([l0, l1, l2])
+    budgets = torch.stack([b0, b1, b2])
+    got = torch.func.vmap(tsellim.sellim_taper)(lims, budgets)
+    shared = torch.func.vmap(tsellim.sellim_taper,
+                             in_dims=(0, None))(lims, b0)
+    for i in range(3):
+        assert torch.equal(got[i], tsellim.sellim_taper(lims[i],
+                                                        budgets[i]))
+        assert torch.equal(shared[i], tsellim.sellim_taper(lims[i], b0))
+    assert not torch.equal(got[0], got[1])
+
+
+# ---- what the wrappers refuse ----------------------------------------
+
+def _taper_ok():
+    return torch.zeros(64), torch.zeros(64)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "device", "empty"])
+def test_taper_refuses(bad):
+    lim, budget = _taper_ok()
+    if bad == "dtype":
+        lim = lim.double()
+    elif bad == "shape":
+        budget = budget[:-1]
+    elif bad == "device":
+        budget = budget.to("meta")
+    else:
+        lim, budget = lim[:0], budget[:0]
+    with pytest.raises(ValueError, match="sellim_taper"):
+        tsellim.sellim_taper(lim, budget)
+
+
+@pytest.mark.parametrize("bad", ["wpad dtype", "ppad shape", "bmax",
+                                 "thr", "tables", "device", "width",
+                                 "rows"])
+def test_blanker_fits_refuses(bad):
+    weak = np.zeros((S, 1), np.complex64)
+    (wpad, ppad, candp, bmax, bank, pf, thr), lead = _fits_args(
+        weak, np.zeros(S, np.float32))
+    pw, s = PW, S
+    if bad == "wpad dtype":
+        wpad = wpad.to(torch.complex128)
+    elif bad == "ppad shape":
+        ppad = ppad[1:]
+    elif bad == "bmax":
+        bmax = bmax.reshape(1, -1)
+    elif bad == "thr":
+        thr = thr.reshape(1)
+    elif bad == "tables":
+        pf = pf[1:]
+    elif bad == "device":
+        thr = thr.to("meta")
+    elif bad == "width":
+        pw = 32
+    else:
+        s = wpad.shape[0]
+    with pytest.raises(ValueError, match="blanker_fits"):
+        tbl.blanker_fits(wpad, ppad, candp, bmax, bank, pf, thr, pw, 64,
+                         lead, s)
+
+
+@pytest.mark.parametrize("name", ["blanker_fits", "sellim_taper"])
+def test_op_schema_and_fake(name):
+    """Each custom operator passes torch.library.opcheck's schema and
+    fake-tensor checks (the fake gives the shapes a trace sees, and
+    refuses what the operator refuses); on the CPU no kernel launch is
+    counted."""
+    if name == "blanker_fits":
+        weak, pwr, _ = _light_input("two-channel")
+        args, lead = _fits_args(weak, pwr)
+        op, args, count = tbl.blanker_fits, (*args, PW, 4, lead, S), \
+            tbl.fits_count
+    else:
+        n = GEO.fft1_size
+        spectrum = _carrier_spectrum(np.random.default_rng(n + 2), n, 0)
+        (lim, budget), = _taper_inputs(
+            FLAGSHIP, [(spectrum, n // 8, n // 8 + 6, None, None)])
+        op, args, count = tsellim.sellim_taper, (lim, budget), \
+            tsellim.taper_count
+    before = (count.launches, count.captured)
+    checks = ("test_schema", "test_faketensor")
+    assert torch.library.opcheck(op, args, test_utils=checks) == dict.fromkeys(
+        checks, "SUCCESS")
+    assert (count.launches, count.captured) == before
+
+
+def test_build_without_nvcc(monkeypatch, tmp_path):
+    """With no nvcc to be found, building a kernel raises and names it;
+    build_all raises once every build has ended."""
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    cuda_build.build.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="sellim_taper: nvcc not found"):
+            cuda_build.build("sellim_taper")
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            cuda_build.build_all()
+    finally:
+        cuda_build.build.cache_clear()

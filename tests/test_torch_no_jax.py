@@ -70,6 +70,7 @@ MODULES = [
     "linrad_tpu_torch.tx.modulate",
     "linrad_tpu_torch.tx.ssbproc",
     "linrad_tpu_torch.tx.stream",
+    "linrad_tpu_torch.utils.cuda_build",
     "linrad_tpu_torch.utils.fporder",
     "linrad_tpu_torch.utils.host",
     "linrad_tpu_torch.utils.llsq",
