@@ -32,8 +32,17 @@ Phases, in order; any failure raises and the script exits non-zero:
             flagship (65,536 samples, up to 64 fits), the EME path (two
             channels) and WCW (262,144 samples, 16 fits), under
             torch.func.vmap over 8 flagship steps as a fleet's streams
-            (one launch), and with a time shard's ineligible halos: nfit
-            exact, weak and pwr within 1e-5, the arguments unchanged;
+            (one launch), with a time shard's ineligible halos, on eleven
+            crafted streams (FITS_EDGE_CASES: ties between blocks and
+            between sub-blocks, NaN and +inf power, pulses on the first
+            and last sample, a halo, two and three channels, windows
+            across block boundaries, candidates on the padded stream's
+            ends) and on streams of 1,048,576 and 2,097,152 samples, past
+            the kernel's shared-memory plan (the bank read from L2, then
+            wider sub-blocks): nfit exact, weak and pwr within 1e-5, NaN
+            where the plain version has it, the arguments unchanged; per
+            case us per fit and the kernel's shared-memory plan, and the
+            ptxas lines of every instance;
             sellim_taper (the edge taper) on the flagship's arguments, on
             carriers at fft1 512, 2,048, 4,096, 8,192 and 16,384 (the
             widest one's budget lasts all 64 passes), at 32,768 (its
@@ -706,7 +715,7 @@ def loop_case(dev: dict, name: str, label: str, kernel, plain, compare,
     got, again, want = kernel(), kernel(), plain()
     torch.cuda.synchronize()
     err, text = compare(got, want)
-    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+    if not all(same_bits(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"{name} {label}: two runs differ")
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
@@ -715,7 +724,7 @@ def loop_case(dev: dict, name: str, label: str, kernel, plain, compare,
         replayed = kernel()
     graph.replay()
     torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(replayed, got)):
+    if not all(same_bits(a, b) for a, b in zip(replayed, got)):
         raise AssertionError(f"{name} {label}: the graph's replay differs "
                              f"from the eager call")
     ms = cuda_ms(kernel, reps)
@@ -748,11 +757,25 @@ def loop_case(dev: dict, name: str, label: str, kernel, plain, compare,
             "library_ms": None, "launch_floor_ms": floor}
 
 
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """a and b hold the same bits (a NaN equals a NaN of the same bits)."""
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
 def compare_fits(got, want) -> tuple[float, str]:
     (kw, kp, kn), (rw, rp, rn) = got, want
     if not torch.equal(kn, rn):
         raise AssertionError(f"blanker_fits: nfit {kn.tolist()} != "
                              f"{rn.tolist()}")
+    for k, r in ((kw, rw), (kp, rp)):
+        if not torch.equal(k.isnan(), r.isnan()):
+            raise AssertionError("blanker_fits: NaN where the plain version "
+                                 "has none, or none where it has one")
+    kw, kp, rw, rp = (x.nan_to_num() for x in (kw, kp, rw, rp))
     rel_w, rel_p = max_rel(kw, rw), max_rel(kp, rp)
     err = max((kw - rw).abs().max().item(), (kp - rp).abs().max().item())
     if rel_w > LOOP_FITS_TOL or rel_p > LOOP_FITS_TOL:
@@ -777,20 +800,154 @@ def compare_taper(got, want) -> tuple[float, str]:
 
 def fits_case(dev: dict, label: str, args: tuple, floor: float,
               plain_device: bool = True, main: bool = False) -> dict:
-    """blanker_fits on one stream's arguments, as the pipeline hands them."""
+    """blanker_fits on one stream's arguments, as the pipeline hands them:
+    against its plain version, then its time per fit and how the kernel
+    holds the stream (the bank in shared memory or read from L2, the
+    sub-block width, the dynamic shared memory)."""
     from linrad_tpu_torch.ops import blanker as bl
     m = valid_fits(args)
     before = [a.clone() for a in args[:7]]
     nbytes, ops = fits_bytes_ops(args, m)
-    wpad = args[0]
+    wpad, bank = args[0], args[4]
+    plan = bl.fits_plan(*wpad.shape, *bank.shape[::-1])
     rep = loop_case(dev, "blanker_fits",
                     f"{label} {tuple(wpad.shape)} x {args[8]}, {m} fits "
                     f"run", lambda: bl.blanker_fits(*args),
                     lambda: bl._blanker_fits_reference(*args), compare_fits,
                     nbytes, ops, floor, 20, plain_device, main)
-    if not all(torch.equal(a, b) for a, b in zip(args[:7], before)):
+    if not all(same_bits(a, b) for a, b in zip(args[:7], before)):
         raise AssertionError("blanker_fits changed an argument")
+    rep["fits"] = m
+    rep["us_per_fit"] = 1e3 * rep["device_ms"] / max(m, 1)
+    rep["plan"] = plan
+    print(f"loops blanker_fits {label}: {rep['us_per_fit']:.3f} us per fit "
+          f"(device_ms over {m} fits; bound_ms {rep['bound_ms']:.6f}); "
+          f"bank {'in shared memory' if plan['bank_shared'] else 'read from L2'}"
+          f", sub-blocks of {plan['sub_block']}, {plan['shared_bytes']} B "
+          f"of dynamic shared memory [{dev['smi']}]", flush=True)
     return rep
+
+
+# Crafted streams for blanker_fits, held against the plain version here on
+# the card and, through a numpy model of the kernel's index, on the CPU
+# (tests/test_torch_loop_kernels.py): noise of sigma 10 with five pulses of
+# the reference bank's shape and a few impulses, and per case ties between
+# two blocks or two sub-blocks of one block, a NaN or +inf power at an
+# active sample, pulses on the first and last sample, in a time shard's
+# halos, two channels, three (the kernel's general instance), windows
+# across a block boundary, and candidates on the padded stream's first
+# and last sample.
+FITS_EDGE_CASES = ("plain", "ties-blocks", "ties-sub-blocks", "nan", "inf",
+                   "first-last", "halo", "two-channel", "three-channel",
+                   "block-boundary", "padded-edges")
+FITS_EDGE_S = 2_000      # 2,304 padded samples: 9 blocks, 72 sub-blocks
+FITS_EDGE_FITS = 24
+FITS_EDGE_THR = 3_600.0  # a noise floor of 100 at clever_bln_limit 6
+FITS_BLOCK = 256         # the presets' blanker_block_size
+
+
+def fits_edge_tables():
+    """The pulse bank, phase function and pulse width of a flat response
+    at fft1 2,048 (the flagship's)."""
+    from linrad_tpu_torch.ops import blanker as bl
+    return bl.make_refpulse_bank(np.ones(2048, np.complex128), 64)
+
+
+def fits_edge_case(name: str, bank: np.ndarray) -> tuple:
+    """(weak (S, C) complex64, pwr (S,) float32, eligible (S,) or None) of
+    one crafted case; sample k sits at k + 64 of the padded stream."""
+    rng = np.random.default_rng(FITS_EDGE_CASES.index(name))
+    s = FITS_EDGE_S
+    c = {"two-channel": 2, "three-channel": 3}.get(name, 1)
+    x = 10.0 * (rng.normal(size=(s, c)) + 1j * rng.normal(size=(s, c)))
+
+    def pulse(pos: int, amp, row: int = 128) -> None:
+        lo, hi = max(pos - 32, 0), min(pos + 32, s)
+        x[lo:hi] += bank[row, lo - pos + 32:hi - pos + 32, None] * amp
+
+    for k, pos in enumerate((300, 650, 1020, 1390, 1760)):
+        pulse(pos, 3000.0 * (1 + 0.1 * k) * np.exp(2j * np.pi * rng.random(c)),
+              row=40 + 30 * k)
+    x[rng.integers(0, s, 6)] += 3000.0
+    eligible = None
+    ties = {"ties-blocks": (300, 812),                  # blocks 1 and 3
+            "ties-sub-blocks": (300, 340)}.get(name, ())   # one block
+    for pos in ties:
+        pulse(pos, 5000.0)
+    if name == "first-last":
+        pulse(0, 6000.0)
+        pulse(s - 1, 7000.0)
+    if name == "halo":
+        eligible = np.ones(s, bool)
+        eligible[:256] = eligible[-256:] = False
+        pulse(100, 9000.0)                  # in the halos: never a
+        pulse(s - 100, 9000.0)              # candidate centre
+    if name == "block-boundary":
+        pulse(512 - 64 + 3, 6000.0)         # windows across 512
+        pulse(1280 - 64 - 2, 6000.0)        # and across 1,280
+    weak = x.astype(np.complex64)
+    pwr = (np.abs(weak) ** 2).sum(1).astype(np.float32)
+    for pos in ties:
+        pwr[pos] = np.float32(4e7)
+    if name == "nan":
+        pwr[1020] = np.nan
+    if name == "inf":
+        pwr[1020] = np.inf
+    return weak, pwr, eligible
+
+
+def pad_fits_args(weak: torch.Tensor, pwr: torch.Tensor,
+                  active: torch.Tensor, tables: tuple,
+                  max_pulses: int) -> tuple:
+    """blanker_fits' arguments as _clever_blanker_blocked builds them from
+    a stream, its power and its candidate centres; tables: (refbank,
+    phasefunc, thr, pw)."""
+    from linrad_tpu_torch.ops import blanker as bl
+    refbank, phasefunc, thr, pw = tables
+    s, pul = weak.shape[0], refbank.shape[1]
+    total = max(-(-(s + 2 * pul) // FITS_BLOCK) * FITS_BLOCK, 2 * FITS_BLOCK)
+    lead, trail = pul, total - s - pul
+    ppad = bl._pad_rows(pwr, lead, trail)
+    candp = torch.where(bl._pad_rows(active, lead, trail, False), ppad, -1.0)
+    return (bl._pad_rows(weak, lead, trail), ppad, candp,
+            candp.reshape(-1, FITS_BLOCK).amax(1), refbank, phasefunc, thr,
+            pw, max_pulses, lead, s)
+
+
+def fits_edge_args(name: str, device="cuda") -> tuple:
+    """blanker_fits' arguments for one crafted case on ``device``."""
+    bank, pf, pw = fits_edge_tables()
+    weak, pwr, eligible = fits_edge_case(
+        "plain" if name == "padded-edges" else name, bank)
+    to = lambda x: torch.from_numpy(x).to(device)
+    active = torch.ones(len(pwr), dtype=torch.bool, device=device) \
+        if eligible is None else to(eligible)
+    thr = torch.tensor(FITS_EDGE_THR, dtype=torch.float32, device=device)
+    args = pad_fits_args(to(weak), to(pwr), active,
+                         (to(bank), to(pf), thr, pw), FITS_EDGE_FITS)
+    if name == "padded-edges":
+        # every padded sample a candidate centre, the strongest on the
+        # first and the last: their windows clamped into the stream
+        wpad, ppad, _c, _b, *rest = args
+        ppad = ppad.clone()
+        ppad[0], ppad[-1] = 5e7, 6e7
+        args = (wpad, ppad, ppad.clone(),
+                ppad.reshape(-1, FITS_BLOCK).amax(1), *rest)
+    return args
+
+
+def past_plan_args(streams: list, repeat: int = 1) -> tuple:
+    """blanker_fits' arguments for one stream of 1,048,576 samples times
+    ``repeat`` (16 flagship steps: the recorded streams and their time
+    reverses), whose candidate index leaves no room for the pulse bank in
+    shared memory, and at ``repeat`` 2 none for sub-blocks of 32."""
+    weak = torch.cat([a[0][a[9]:a[9] + a[10]] for a in streams])
+    pwr = torch.cat([a[1][a[9]:a[9] + a[10]] for a in streams])
+    weak = torch.cat([weak, weak.flip(0)] * repeat)
+    pwr = torch.cat([pwr, pwr.flip(0)] * repeat)
+    a = streams[0]
+    return pad_fits_args(weak, pwr, torch.ones_like(pwr, dtype=torch.bool),
+                         (a[4], a[5], a[6], a[7]), a[8])
 
 
 def fits_vmap_case(dev: dict, streams: list, floor: float) -> dict:
@@ -815,13 +972,21 @@ def fits_vmap_case(dev: dict, streams: list, floor: float) -> dict:
     kernel()
     if bl.fits_count.launches != before + 1:
         raise AssertionError("blanker_fits under vmap: expected one launch")
-    m = sum(valid_fits(a) for a in streams)
+    each = [valid_fits(a) for a in streams]
+    m = sum(each)
     nbytes, ops = fits_bytes_ops((w, p, c, b, bank, pf, thr, pw, mp, lead,
                                   s), m)
-    return loop_case(dev, "blanker_fits",
-                     f"vmap R={len(streams)} {tuple(w.shape)} x {mp}, {m} "
-                     f"fits run in all", kernel, plain, compare_fits,
-                     nbytes, ops, floor, 10, plain_device=False)
+    rep = loop_case(dev, "blanker_fits",
+                    f"vmap R={len(streams)} {tuple(w.shape)} x {mp}, {m} "
+                    f"fits run in all", kernel, plain, compare_fits,
+                    nbytes, ops, floor, 10, plain_device=False)
+    # the streams' chains run side by side: time per fit of the longest
+    rep["fits"] = m
+    rep["us_per_fit"] = 1e3 * rep["device_ms"] / max(each)
+    print(f"loops blanker_fits vmap: {rep['us_per_fit']:.3f} us per fit of "
+          f"the longest chain ({max(each)} of {each}) [{dev['smi']}]",
+          flush=True)
+    return rep
 
 
 def taper_case(dev: dict, label: str, lim: torch.Tensor,
@@ -860,7 +1025,11 @@ def phase_loop_kernels(dev: dict) -> dict:
     from linrad_tpu_torch.ops import fused_fft1 as ff
     from linrad_tpu_torch.ops import sellim as sl
     from linrad_tpu_torch.utils.timing import graph_ms
+    from linrad_tpu_torch.utils import cuda_build
     t0 = time.perf_counter()
+    for line in cuda_build.build("blanker_fits")[1]["log"].splitlines():
+        if any(w in line for w in ("entry function", "registers", "spill")):
+            print(f"loops blanker_fits ptxas: {line.strip()}")
     cuda = torch.device("cuda", torch.cuda.current_device())
     floor = graph_ms(lambda: ff.empty_launch(cuda), 50, 20)
     p = flagship_params(fft1_variant="pallas")
@@ -890,6 +1059,21 @@ def phase_loop_kernels(dev: dict) -> dict:
     bmax = candp.reshape(bmax.shape[0], -1).amax(1)
     fits_rep["eligible"] = fits_case(dev, "eligible halo", (
         wpad, ppad, candp, bmax, *rest), floor, plain_device=False)
+    for name in FITS_EDGE_CASES:
+        fits_rep[f"edge {name}"] = fits_case(
+            dev, f"edge {name}", fits_edge_args(name), floor,
+            plain_device=False)
+    fits_rep["past plan"] = fits_case(
+        dev, "past the shared-memory plan", past_plan_args(fits[1:9]),
+        floor, plain_device=False)
+    fits_rep["past plan W"] = fits_case(
+        dev, "past the shared-memory plan, wider sub-blocks",
+        past_plan_args(fits[1:9], 2), floor, plain_device=False)
+    plans = (fits_rep["past plan"]["plan"], fits_rep["past plan W"]["plan"])
+    if plans[0]["bank_shared"] or plans[0]["sub_block"] != 32 \
+            or plans[1]["bank_shared"] or plans[1]["sub_block"] == 32:
+        raise AssertionError(f"the past-plan cases do not reach the bank in "
+                             f"L2 and the wider sub-blocks: {plans}")
 
     taper_rep = {"flagship": taper_case(dev, "flagship", *tapers[1],
                                         floor, main=True)}

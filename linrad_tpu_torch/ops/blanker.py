@@ -269,7 +269,7 @@ def _clever_blanker_blocked(weak, pwr, tables, noise_floor, limit_amp,
 
 # ---- the sequential fits: the kernel's wrapper and its plain version ----
 
-FITS_THREADS = 256      # the kernel's block (kThreads)
+FITS_WINDOW = 256       # most samples in a fit window (pul x C): 8 a lane
 # launches of csrc/blanker_fits.cu, made and recorded into CUDA graphs
 fits_count = cuda_build.LaunchCount()
 
@@ -337,7 +337,7 @@ def _check_fits(wpad, ppad, candp, bmax, refbank, phasefunc, thr, pw,
         raise ValueError("blanker_fits: thr must be a 0-dim float32 tensor")
     pul = refbank.shape[1]
     blk = total // bmax.shape[0]
-    if pul * c > FITS_THREADS or not 0 <= pw < pul // 2 \
+    if pul * c > FITS_WINDOW or not 0 <= pw < pul // 2 \
             or not pul + 2 * pw + 1 < blk or max_pulses < 0 \
             or lead < 0 or s < 0 or lead + s > total:
         raise ValueError(f"blanker_fits: unsupported pulse {pul}, width "
@@ -354,44 +354,64 @@ def _check_fits(wpad, ppad, candp, bmax, refbank, phasefunc, thr, pw,
         raise ValueError(f"blanker_fits: unsupported device {wpad.device}")
 
 
-@functools.lru_cache(maxsize=1)
-def _fits_fn():
-    """The C launcher of csrc/blanker_fits.cu, built at first use."""
-    lib, _info = cuda_build.build("blanker_fits")
-    fn = lib.lrt_blanker_fits
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 4
-                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+@functools.lru_cache(maxsize=None)
+def _fits_lib(defines: tuple = ()):
+    """The library of csrc/blanker_fits.cu, built at first use (with the
+    given preprocessor names defined), its C functions typed."""
+    lib, _info = cuda_build.build("blanker_fits", defines)
+    lib.lrt_blanker_fits.argtypes = ([ctypes.c_void_p] * 10
+                                     + [ctypes.c_longlong] * 3
+                                     + [ctypes.c_int] * 8
+                                     + [ctypes.c_void_p])
+    lib.lrt_blanker_fits_plan.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    lib.lrt_blanker_fits_scratch_words.argtypes = [ctypes.c_int]
+    lib.lrt_blanker_fits_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    return lib
 
 
-def _fits_launch(wpad, ppad, candp, bmax, refbank, phasefunc, thr,
-                 shared: tuple, pw: int, max_pulses: int, lead: int,
-                 s: int):
-    """One launch for R streams: wpad (R, T, C), ppad and candp (R, T),
-    bmax (R, nblk); refbank, phasefunc and thr with a leading stream axis
-    of R, or without it where ``shared`` (three flags) says they serve
-    every stream.  Returns (weak (R, S, C), pwr (R, S), nfit (R,))."""
+def fits_plan(total: int, c: int, pul: int, nref: int) -> dict:
+    """How the kernel holds a stream of ``total`` samples of ``c``
+    channels on the current card: the pulse bank in shared memory or read
+    from L2, the sub-block width W of its index, and its dynamic shared
+    memory in bytes."""
+    out = (ctypes.c_int * 3)()
+    err = _fits_lib().lrt_blanker_fits_plan(total, c, pul, nref, out)
+    if err:
+        raise RuntimeError(f"blanker_fits: no shared-memory plan for "
+                           f"{total} samples x {c} (CUDA error {err})")
+    return {"bank_shared": bool(out[0]), "sub_block": out[1],
+            "shared_bytes": out[2]}
+
+
+def _fits_launch(wpad, ppad, candp, blk: int, refbank, phasefunc, thr,
+                 shared: tuple, pw: int, max_pulses: int, lead: int, s: int,
+                 lib=None):
+    """One call for R streams: wpad (R, T, C), ppad and candp (R, T),
+    blocks of blk samples; refbank, phasefunc and thr with a leading
+    stream axis of R, or without it where ``shared`` (three flags) says
+    they serve every stream.  The C function launches the prep kernel
+    (the working copies, the candidates' index) and the fits kernel.
+    Returns (weak (R, S, C), pwr (R, S), nfit (R,))."""
+    lib = lib or _fits_lib()
     dev = wpad.device
     r, total, c = wpad.shape
     nref, pul = refbank.shape[-2:]
-    # the kernel's working copies: the arguments stay as they are
-    wk = wpad.clone(memory_format=torch.contiguous_format)
-    pk = ppad.clone(memory_format=torch.contiguous_format)
-    ck = candp.clone(memory_format=torch.contiguous_format)
-    bmax, refbank, phasefunc, thr = (
-        x.contiguous() for x in (bmax, refbank, phasefunc, thr))
-    if (refbank.data_ptr() | phasefunc.data_ptr()) % 8:
-        raise ValueError("blanker_fits: tables must be 8-byte aligned")
+    wpad, ppad, candp, refbank, phasefunc, thr = (
+        x.contiguous() for x in (wpad, ppad, candp, refbank, phasefunc, thr))
+    wk = torch.empty((r, total, c), dtype=torch.complex64, device=dev)
+    pk = torch.empty((r, total), dtype=torch.float32, device=dev)
+    scr = torch.empty(r * lib.lrt_blanker_fits_scratch_words(total),
+                      dtype=torch.int32, device=dev)
     nfit = torch.empty(r, dtype=torch.int32, device=dev)
     strides = [0 if sh else x[0].numel()
                for sh, x in zip(shared, (refbank, phasefunc, thr))]
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    cuda_build.launch(_fits_fn(), (
-        wk.data_ptr(), pk.data_ptr(), ck.data_ptr(), bmax.data_ptr(),
-        refbank.data_ptr(), phasefunc.data_ptr(), thr.data_ptr(),
-        nfit.data_ptr(), bmax.shape[-1], *strides, total, c, bmax.shape[-1],
-        pul, nref, pw, max_pulses, r, stream), dev,
+    cuda_build.launch(lib.lrt_blanker_fits, (
+        wpad.data_ptr(), ppad.data_ptr(), candp.data_ptr(), wk.data_ptr(),
+        pk.data_ptr(), scr.data_ptr(), refbank.data_ptr(),
+        phasefunc.data_ptr(), thr.data_ptr(), nfit.data_ptr(), *strides,
+        total, c, blk, pul, nref, pw, max_pulses, r, stream), dev,
         f"blanker_fits at ({r}, {total}, {c})")
     fits_count.add()
     return wk[:, lead: lead + s], pk[:, lead: lead + s], nfit
@@ -415,6 +435,13 @@ def blanker_fits(wpad: torch.Tensor, ppad: torch.Tensor, candp: torch.Tensor,
     ``lead:lead + s`` after the fits, fitted count (0-dim int32)).  No
     argument is changed.
 
+    candp and bmax are what :func:`_clever_blanker_blocked` builds:
+    ``where(active, ppad, -1)`` of a power that is not negative, and its
+    block maxima.  The plain version searches them; the kernel builds its
+    own index of the candidates from candp (an active bit where it is not
+    negative, and maxima of 32-sample sub-blocks), which holds the same
+    candidates at every fit, and reads only bmax's length.
+
     A PyTorch custom operator (``torch.ops.linrad_tpu_torch.blanker_fits``)
     with a rule for ``torch.func.vmap``: R streams make one launch of R
     blocks (:func:`_blanker_fits_vmap`).  Its launches are counted in
@@ -426,8 +453,8 @@ def blanker_fits(wpad: torch.Tensor, ppad: torch.Tensor, candp: torch.Tensor,
                                        phasefunc, thr, pw, max_pulses, lead,
                                        s)
     weak, pwr, nfit = _fits_launch(
-        wpad[None], ppad[None], candp[None], bmax[None], refbank, phasefunc,
-        thr, (True, True, True), pw, max_pulses, lead, s)
+        wpad[None], ppad[None], candp[None], wpad.shape[0] // bmax.shape[0],
+        refbank, phasefunc, thr, (True, True, True), pw, max_pulses, lead, s)
     return weak[0], pwr[0], nfit[0]
 
 
@@ -468,7 +495,8 @@ def _blanker_fits_vmap(info, in_dims, wpad, ppad, candp, bmax, refbank,
             *(t if h else t[i] for t, h in zip(tabs, shared)), pw,
             max_pulses, lead, s) for i in range(r)]
         return tuple(torch.stack(v) for v in zip(*outs)), (0, 0, 0)
-    return _fits_launch(*data, *tabs, shared, pw, max_pulses, lead,
+    blk = data[0].shape[1] // data[3].shape[1]
+    return _fits_launch(*data[:3], blk, *tabs, shared, pw, max_pulses, lead,
                         s), (0, 0, 0)
 
 

@@ -14,6 +14,11 @@ On the CPU each wrapper runs its plain version, so these tests hold:
   bin, every later iteration changes nothing, bit for bit;
 - the vmap rules (one launch of R blocks on the card, the plain version
   per stream here) bit-equal to separate calls;
+- a numpy model of the fits kernel's candidate index (active bits, the
+  maxima of sub-blocks and of their groups, the rows a fit stages, the
+  refresh), bit for bit against the plain version on ``chip_smoke.py``'s
+  crafted cases, and the plain version against JAX on the tie, NaN and
+  +inf cases;
 - what the wrappers refuse.
 
 The kernels themselves run on the card only: ``chip_smoke.py``'s loop
@@ -26,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 from __graft_entry__ import _flagship_params
 from linrad_tpu import RxMode, derive_geometry, preset
 from linrad_tpu.ops import blanker as jbl
@@ -153,13 +159,14 @@ def test_blanker_fits_against_jax(blanker_runs, case):
 
 def _fits_args(weak, pwr, eligible=None, blk=256):
     """blanker_fits' arguments as _clever_blanker_blocked builds them."""
+    s = weak.shape[0]
     pul = BANK.shape[1]
     lead = pul
-    total = max(-(-(S + 2 * pul) // blk) * blk, 2 * blk)
-    trail = total - S - lead
+    total = max(-(-(s + 2 * pul) // blk) * blk, 2 * blk)
+    trail = total - s - lead
     wpad = tbl._pad_rows(_t(weak), lead, trail)
     ppad = tbl._pad_rows(_t(pwr), lead, trail)
-    act = torch.ones(S, dtype=torch.bool) if eligible is None \
+    act = torch.ones(s, dtype=torch.bool) if eligible is None \
         else _t(eligible)
     active = tbl._pad_rows(act, lead, trail, False)
     candp = torch.where(active, ppad, -1.0)
@@ -217,6 +224,139 @@ def test_blanker_fits_vmap():
         want = one(ws[i], ps[i], floors[i])
         assert all(torch.equal(a[i], b) for a, b in zip(got, want)), i
     assert len({int(n) for n in got[2]}) > 1
+
+
+# ---- the kernel's candidate index, modelled in numpy -----------------
+
+def _kernel_model(args: tuple, pw: int, max_pulses: int, lead: int, s: int,
+                  w: int = 32):
+    """numpy model of csrc/blanker_fits.cu's indexing around the plain
+    version's fit arithmetic (``_fit`` on the staged rows).
+
+    The kernel holds an active bit per sample, built from candp (set where
+    candp is not negative), and the maxima of ``w``-sample sub-blocks and
+    of groups of 32 sub-blocks; a sample's candidate power is its power
+    where the bit is set, -1 elsewhere.  A fit picks the first maximal
+    group, its first maximal sub-block, and stops if that maximum is at
+    or under the threshold.  A NaN there is no fit: the plain version's
+    refresh (``cand >= 0``) retires every NaN of the two blocks around it,
+    and the loop goes on.  Else a fit stages the rows [lo, hi) of the whole
+    sub-blocks around every window a sample of the sub-block can have,
+    picks the sample from the staged rows, fits, writes the window back,
+    retires +-pw around the sample and rebuilds the maxima of the
+    sub-blocks the window touches and of their groups.  Asserts that all
+    the fit reads or writes lies in the staged rows.  Returns (weak, pwr,
+    nfit) as the plain version does, and the staged row counts."""
+    wpad, ppad, candp, bmax, refbank, phasefunc, thr = args
+    wk, pk = wpad.numpy().copy(), ppad.numpy().copy()
+    cand = candp.numpy()
+    total, pul = pk.shape[0], refbank.shape[1]
+    nblk = bmax.shape[0]
+    blk = total // nblk
+    half = pul // 2
+    tables = tbl.BlankerTables(refbank=refbank, phasefunc=phasefunc)
+    act = ~(cand < 0)
+    nsub = -(-total // w)
+    value = lambda a, p: np.where(a, p, np.float32(-1))
+    sub = np.array([np.max(value(act[g * w:(g + 1) * w],
+                                 cand[g * w:(g + 1) * w]))
+                    for g in range(nsub)], np.float32)
+    top = np.array([np.max(sub[t * 32:(t + 1) * 32])
+                    for t in range(-(-nsub // 32))], np.float32)
+    nfit, staged = 0, []
+    for _ in range(max_pulses):
+        gi = int(np.argmax(top))          # NaN first, ties to the lowest
+        if not (top[gi] > thr.item() or np.isnan(top[gi])):
+            break
+        si = gi * 32 + int(np.argmax(sub[gi * 32:(gi + 1) * 32]))
+        s0, s1 = si * w, min(si * w + w, total)
+        if np.isnan(top[gi]):
+            p = s0 + int(np.argmax(value(act[s0:s1], pk[s0:s1])))
+            b0 = int(np.clip((p - half - pw) // blk, 0, nblk - 2))
+            r0, r1 = b0 * blk, b0 * blk + 2 * blk
+            act[r0:r1] &= ~np.isnan(pk[r0:r1])
+            for g in range(r0 // w, (r1 - 1) // w + 1):
+                rows = slice(g * w, min(g * w + w, total))
+                sub[g] = np.max(value(act[rows], pk[rows]))
+            for t in range(r0 // w // 32, (r1 - 1) // w // 32 + 1):
+                top[t] = np.max(sub[t * 32:(t + 1) * 32])
+            continue
+        wmin = int(np.clip(s0 - half, 0, total - pul))
+        wmax = int(np.clip(s1 - 1 - half, 0, total - pul))
+        lo, hi = wmin // w * w, min(((wmax + pul - 1) // w + 1) * w, total)
+        staged.append(hi - lo)
+        sw, sp, sa = wk[lo:hi].copy(), pk[lo:hi].copy(), act[lo:hi].copy()
+        p = s0 + int(np.argmax(value(sa[s0 - lo:s1 - lo],
+                                     sp[s0 - lo:s1 - lo])))
+        start = int(np.clip(p - half, 0, total - pul))
+        rlo, rhi = max(p - pw, 0), min(p + pw, total - 1)
+        ga, gb = start // w, (start + pul - 1) // w
+        assert lo <= min(start, rlo, ga * w), (lo, start, rlo)
+        assert max(start + pul, rhi + 1, min((gb + 1) * w, total)) <= hi
+        q = slice(start - lo, start - lo + pul)
+        neww, newp, ok = tbl._fit(torch.from_numpy(sw[q]),
+                                  torch.from_numpy(sp[q]), tables, pw,
+                                  torch.tensor(True))
+        if ok:
+            sp[q] = newp.numpy()
+            wk[start:start + pul], pk[start:start + pul] = neww.numpy(), sp[q]
+        nfit += int(ok)
+        sa[rlo - lo:rhi - lo + 1] = False
+        act[rlo:rhi + 1] = False
+        for g in range(ga, gb + 1):
+            rows = slice(g * w - lo, min(g * w + w, total) - lo)
+            sub[g] = np.max(value(sa[rows], sp[rows]))
+        for t in range(ga // 32, gb // 32 + 1):
+            top[t] = np.max(sub[t * 32:(t + 1) * 32])
+    return (torch.from_numpy(wk[lead:lead + s]),
+            torch.from_numpy(pk[lead:lead + s]),
+            torch.tensor(nfit, dtype=torch.int32)), staged
+
+
+@pytest.mark.parametrize("w", [32, 64])
+@pytest.mark.parametrize("case", cs.FITS_EDGE_CASES)
+def test_kernel_index_model(case, w):
+    """The model of the kernel's indexing (bits, two-level maxima, staged
+    rows, refresh) gives the plain version's bits on chip_smoke.py's
+    crafted cases (the same arguments that phase 3b hands the kernel on
+    the card), at the kernel's sub-block width 32 and at 64, the width it
+    takes where its index would not fit: nfit exact, arrays equal.  At
+    pulse 64 a fit stages 96 rows at W 32 and 192 at W 64, fewer where
+    the window is clamped to the padded stream."""
+    args = cs.fits_edge_args(case, CPU)
+    want = tbl._blanker_fits_reference(*args)
+    got, staged = _kernel_model(args[:7], *args[7:], w)
+    assert int(got[2]) == int(want[2]) >= 5
+    for a, b in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert max(staged) == {32: 96, 64: 192}[w]
+    if case == "padded-edges":
+        assert min(staged) < max(staged)
+
+
+@pytest.mark.parametrize("case", ["ties-blocks", "ties-sub-blocks", "nan",
+                                  "inf"])
+def test_small_cases_against_jax(case):
+    """The plain version through _clever_blanker_blocked against JAX's on
+    the tie, NaN and +inf cases: the same candidates in the same order
+    (nfit exact), the NaN where it was, floats within FP32.  A NaN at an
+    active sample does not end the loop on either side: it wins the
+    argmax, fits nothing, and the refresh (``cand >= 0``) retires it."""
+    weak, pwr, _ = cs.fits_edge_case(case, BANK)
+    j_tab = jbl.BlankerTables(refbank=jnp.asarray(BANK),
+                              phasefunc=jnp.asarray(PHASEFUNC))
+    jw, jp, jn = (np.asarray(v) for v in jbl._clever_blanker_blocked(
+        jnp.asarray(weak), jnp.asarray(pwr), j_tab, jnp.asarray(NOISE_FLOOR),
+        LIMIT_AMP, PW, cs.FITS_EDGE_FITS, cs.FITS_BLOCK))
+    tw, tp, tn = tbl._clever_blanker_blocked(
+        _t(weak), _t(pwr), _t_tables(), torch.tensor(NOISE_FLOOR),
+        LIMIT_AMP, PW, cs.FITS_EDGE_FITS, cs.FITS_BLOCK)
+    assert int(tn) == int(jn) >= 5
+    tp = tp.numpy()
+    np.testing.assert_array_equal(np.isnan(tp), np.isnan(pwr))
+    np.testing.assert_array_equal(np.isnan(jp), np.isnan(pwr))
+    assert _rel(tw.numpy(), jw) <= FP32
+    assert _rel(np.nan_to_num(tp), np.nan_to_num(jp)) <= FP32
 
 
 # ---- sellim's taper --------------------------------------------------
