@@ -52,7 +52,9 @@
 //   is known at compile time: each lane holds 2 or 4 samples of one
 //   channel, and the per-channel phase, the parabola's three sums and the
 //   row powers pass through registers and shuffles.  Other shapes use the
-//   general instance, which passes them through shared memory.
+//   general instance, which passes them through shared memory: at the
+//   flagship's arguments it takes 4.05 us a fit against 2.60 (an H100,
+//   chip_smoke.py phase 3b), which is why both are kept.
 // - The arithmetic and every decision are those of the plain version, as
 //   in the kernel this one replaced: the argument of the bank row j is
 //   rounded without fused multiply-adds, clamped before the truncation
@@ -73,10 +75,6 @@
 // reads its row from L2 (the kernel's second instance), and past that
 // again W doubles; a stream whose index does not fit even so is refused
 // at launch.
-//
-// Built with -DLRT_FITS_PROFILE, the fits kernel also sums the cycles of
-// each step of its loop (clock64, lane 0), for
-// `python3 linrad_tpu_torch/utils/timing.py --fits`.
 
 #include <cuda_runtime.h>
 
@@ -144,26 +142,6 @@ __host__ __device__ inline Layout layout(int T, int C, int pul, int nref,
   L.bytes = o;
   return L;
 }
-
-#ifdef LRT_FITS_PROFILE
-constexpr int kProfSteps = 16;
-__device__ long long prof_cycles[64 * kProfSteps];
-#define PROF_DECL long long prof_acc[kProfSteps] = {}, prof_last = clock64();
-#define PT(k)                                                     \
-  do {                                                            \
-    const long long t_ = clock64();                               \
-    prof_acc[k] += t_ - prof_last;                                \
-    prof_last = t_;                                               \
-  } while (0)
-#define PROF_STORE                                                     \
-  if (lane == 0 && r < 64)                                            \
-    for (int k_ = 0; k_ < kProfSteps; ++k_)                           \
-      prof_cycles[r * kProfSteps + k_] = prof_acc[k_];
-#else
-#define PROF_DECL
-#define PT(k)
-#define PROF_STORE
-#endif
 
 // ---- mbarriers and bulk copies -----------------------------------------
 
@@ -513,7 +491,6 @@ blanker_fits_kernel(float2* wk, float* pk, uint32_t* scr,
 
   int fitted = 0, nring = 0, ring_start = 0;   // ring_start: lane j's slot
   uint32_t phase = 0;
-  PROF_DECL
   for (int it = 0; it < max_pulses; ++it) {
     // the group with the largest candidate
     uint32_t key = 0, idx = kFull;
@@ -533,7 +510,6 @@ blanker_fits_kernel(float2* wk, float* pk, uint32_t* scr,
     const int si = __reduce_min_sync(kFull,
                                      g < L.nsub && sub[g] == best ? g : kFull);
     const int s0 = si << sh, s1 = min(s0 + W, T);
-    PT(0);
     if (isnan(v)) {
       retire_nans(pk, bits, sub, top, T, L.nsub, sh, s0, s1, half + pw, blk,
                   lane);
@@ -542,6 +518,7 @@ blanker_fits_kernel(float2* wk, float* pk, uint32_t* scr,
     // a full ring: its windows reach the bulk copies issued from here on
     if (nring == kRing) {
       asm volatile("fence.proxy.async.global;\n" ::: "memory");
+      __syncwarp();   // every lane's fenced writes before lane 0's copy
       nring = 0;
     }
     // stage the rows the fit may touch: whole sub-blocks around every
@@ -564,7 +541,6 @@ blanker_fits_kernel(float2* wk, float* pk, uint32_t* scr,
       copy_ends(ws);
       copy_ends(ps);
     }
-    PT(1);
     mbar_wait(&bars[1], phase);
     phase ^= 1;
     float2* sw = reinterpret_cast<float2*>(ws.dst);   // row lo + q at q C
@@ -589,7 +565,6 @@ blanker_fits_kernel(float2* wk, float* pk, uint32_t* scr,
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     }
     __syncwarp();
-    PT(2);
     // the candidate: the sub-block's first maximal sample.  With kFast
     // each lane also takes the unit phasor of the power-weighted phase of
     // the three centre points of its own best row's window, per channel,
@@ -612,7 +587,6 @@ blanker_fits_kernel(float2* wk, float* pk, uint32_t* scr,
       u0 = centre_unit(wown, pf, half, C, 0);
       if (kC == 2) u1 = centre_unit(wown, pf, half, C, 1);
     }
-    PT(3);
 
     // the fit window, derotated by the phase function, rotated onto the
     // real axis by the power-weighted phase of its three centre points
@@ -632,7 +606,6 @@ blanker_fits_kernel(float2* wk, float* pk, uint32_t* scr,
         unit[c] = centre_unit(win, pf, half, C, c);
       __syncwarp();
     }
-    PT(4);
     // I and Q power over the centre +-pw
     float2 w[kSlots];
     float rx[kSlots];
@@ -655,7 +628,6 @@ blanker_fits_kernel(float2* wk, float* pk, uint32_t* scr,
     }
     warp_sum2(ip, qp);
     const bool shape_ok = qp <= 0.25f * ip;   // blank1.c:121
-    PT(5);
     // the real parts of the three centre rows, summed over the channels:
     // the parabola's points; the centre row's real part of each channel
     float a[3], re;
@@ -682,7 +654,6 @@ blanker_fits_kernel(float2* wk, float* pk, uint32_t* scr,
       re = 0.f;
     }
     const float2* ref = bank + static_cast<long long>(bank_row(a, nref)) * pul;
-    PT(6);
     // subtract coef * bank[j] (blank1.c:157-162), coef = unit * re
 #pragma unroll
     for (int s = 0; s < kSlots; ++s) {
@@ -695,7 +666,6 @@ blanker_fits_kernel(float2* wk, float* pk, uint32_t* scr,
         if (!kFast) nw[lane + 32 * s] = w[s];
       }
     }
-    PT(7);
     // the new window's power per row; the sums of new and old.  With kFast
     // the lanes of channel 0 hold the rows (row ek[s] in slot s).
     float newp[kSlots];
@@ -734,7 +704,6 @@ blanker_fits_kernel(float2* wk, float* pk, uint32_t* scr,
     warp_sum2(sn, so);
     const bool success =
         shape_ok && sn / fmaxf(so, 1e-20f) <= 0.5f;   // blank1.c:188
-    PT(8);
     if (success) {
       if (lane == nring) ring_start = start;
 #pragma unroll
@@ -756,7 +725,6 @@ blanker_fits_kernel(float2* wk, float* pk, uint32_t* scr,
     }
     fitted += success ? 1 : 0;
     __syncwarp();
-    PT(9);
 
     // retire +-pw around the candidate; rebuild the keys of the sub-blocks
     // the window touches and of their (one or two) groups, the retired
@@ -824,10 +792,8 @@ blanker_fits_kernel(float2* wk, float* pk, uint32_t* scr,
       bits[w0 + k] = sb[k] & ~mask;
     }
     __syncwarp();
-    PT(10);
   }
   if (lane == 0) nfit[r] = fitted;
-  PROF_STORE
 }
 
 using FitsKernel = void (*)(float2*, float*, uint32_t*, const float2*,
@@ -906,20 +872,6 @@ extern "C" int lrt_blanker_fits_plan(int T, int C, int pul, int nref,
   out[1] = 32 << wshift;
   out[2] = L.bytes;
   return 0;
-}
-
-// The cycles per step of the fits loop of stream r < 64 (a build with
-// -DLRT_FITS_PROFILE; else an error).
-extern "C" int lrt_blanker_fits_cycles(long long* out, int r) {
-#ifdef LRT_FITS_PROFILE
-  return static_cast<int>(cudaMemcpyFromSymbol(
-      out, prof_cycles, sizeof(long long) * kProfSteps,
-      sizeof(long long) * kProfSteps * r));
-#else
-  (void)out;
-  (void)r;
-  return static_cast<int>(cudaErrorNotSupported);
-#endif
 }
 
 // wpad (R, T, C), ppad and cand (R, T): the inputs; wk (R, T, C), pk

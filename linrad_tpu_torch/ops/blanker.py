@@ -314,6 +314,19 @@ def _blanker_fits_reference(wpad, ppad, candp, bmax, refbank, phasefunc,
 
 def _check_fits(wpad, ppad, candp, bmax, refbank, phasefunc, thr, pw,
                 max_pulses, lead, s) -> None:
+    """Refuse the arguments :func:`blanker_fits` does not take: wpad (T, C)
+    complex64; ppad and candp (T,) float32; bmax float32, T a whole number
+    of its blocks, two at least; refbank (nref, pul) and phasefunc (pul,)
+    complex64 with pul C <= FITS_WINDOW; 0 <= pw < pul / 2 and pul + 2 pw
+    + 1 under the block; thr a 0-dim float32; rows lead:lead + s inside T;
+    every tensor on one device.
+
+    Not checked, since it would read the data: candp must be
+    ``where(active, ppad, -1)`` of a ppad that is nowhere negative (NaN
+    allowed), and bmax its block maxima, as :func:`_clever_blanker_blocked`
+    builds them.  The plain version searches candp and bmax as given; the
+    kernel reads candp only by its sign and bmax only by its length, so on
+    other arguments the two differ."""
     if wpad.dim() != 2 or wpad.dtype != torch.complex64:
         raise ValueError(f"blanker_fits: wpad must be (T, C) complex64, got "
                          f"{tuple(wpad.shape)} {wpad.dtype}")
@@ -354,11 +367,11 @@ def _check_fits(wpad, ppad, candp, bmax, refbank, phasefunc, thr, pw,
         raise ValueError(f"blanker_fits: unsupported device {wpad.device}")
 
 
-@functools.lru_cache(maxsize=None)
-def _fits_lib(defines: tuple = ()):
-    """The library of csrc/blanker_fits.cu, built at first use (with the
-    given preprocessor names defined), its C functions typed."""
-    lib, _info = cuda_build.build("blanker_fits", defines)
+@functools.lru_cache(maxsize=1)
+def _fits_lib():
+    """The library of csrc/blanker_fits.cu, built at first use, its C
+    functions typed."""
+    lib, _info = cuda_build.build("blanker_fits")
     lib.lrt_blanker_fits.argtypes = ([ctypes.c_void_p] * 10
                                      + [ctypes.c_longlong] * 3
                                      + [ctypes.c_int] * 8
@@ -366,7 +379,6 @@ def _fits_lib(defines: tuple = ()):
     lib.lrt_blanker_fits_plan.argtypes = [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     lib.lrt_blanker_fits_scratch_words.argtypes = [ctypes.c_int]
-    lib.lrt_blanker_fits_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
     return lib
 
 
@@ -385,15 +397,14 @@ def fits_plan(total: int, c: int, pul: int, nref: int) -> dict:
 
 
 def _fits_launch(wpad, ppad, candp, blk: int, refbank, phasefunc, thr,
-                 shared: tuple, pw: int, max_pulses: int, lead: int, s: int,
-                 lib=None):
+                 shared: tuple, pw: int, max_pulses: int, lead: int, s: int):
     """One call for R streams: wpad (R, T, C), ppad and candp (R, T),
     blocks of blk samples; refbank, phasefunc and thr with a leading
     stream axis of R, or without it where ``shared`` (three flags) says
     they serve every stream.  The C function launches the prep kernel
     (the working copies, the candidates' index) and the fits kernel.
     Returns (weak (R, S, C), pwr (R, S), nfit (R,))."""
-    lib = lib or _fits_lib()
+    lib = _fits_lib()
     dev = wpad.device
     r, total, c = wpad.shape
     nref, pul = refbank.shape[-2:]

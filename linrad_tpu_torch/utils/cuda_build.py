@@ -44,24 +44,23 @@ def nvcc(name: str) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def build(name: str, defines: tuple = ()) -> tuple[ctypes.CDLL, dict]:
-    """Compile ``csrc/<name>.cu`` (once per version of its contents and
-    set of preprocessor names ``defines``) and load it.
+def build(name: str) -> tuple[ctypes.CDLL, dict]:
+    """Compile ``csrc/<name>.cu`` (once per version of its contents) and
+    load it.
 
     Returns (library, info) where info holds the library path, the build
     seconds (0.0 when an earlier build of the same source was reused) and
     the compiler's output (``-Xptxas -v``: registers, shared memory)."""
     src_path = CSRC / f"{name}.cu"
     src = src_path.read_bytes()
-    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-    digest = hashlib.sha1(src + " ".join(flags).encode()).hexdigest()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     lib_path = BUILD_DIR / f"lib{name}_{digest[:12]}.so"
     info = {"path": str(lib_path), "build_seconds": 0.0, "log": ""}
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        proc = subprocess.run([nvcc(name), *flags, "-o", str(tmp),
+        proc = subprocess.run([nvcc(name), *NVCC_FLAGS, "-o", str(tmp),
                                str(src_path)], capture_output=True,
                               text=True)
         info["build_seconds"] = time.perf_counter() - t0

@@ -13,12 +13,9 @@ As a script it times ``fused_fft1`` of this checkout, or of this
 checkout and another on the same card in turns (other, this, this,
 other), for comparing two versions of the kernel; with ``--step`` it
 times the graphed flagship step instead (``BatchRunner``, the replays
-alone), for comparing two versions of the step; with ``--fits`` it
-prints where a fit's time goes in the blanker's fits kernel (cycles per
-step of its loop, from a build with LRT_FITS_PROFILE):
+alone), for comparing two versions of the step:
 
     python3 linrad_tpu_torch/utils/timing.py [--step] [--other DIR]
-    python3 linrad_tpu_torch/utils/timing.py --fits
 
 DIR holds another ``linrad_tpu_torch`` package; each checkout is loaded
 in a process of its own, since both packages have the same name.  Every
@@ -213,55 +210,6 @@ def _time_step(root: str) -> None:
           flush=True)
 
 
-FITS_STEPS = ("group and sub-block", "stage issued, bits read",
-              "stage arrived, ring patched", "sample", "centre phase",
-              "rotation, I/Q sums", "parabola, bank row", "subtraction",
-              "row powers, ratio", "write-back", "retire and refresh")
-
-
-def _time_fits(root: str) -> None:
-    """Where a fit's time goes in the blanker's fits kernel of the package
-    under root: the kernel built with LRT_FITS_PROFILE sums the cycles of
-    each step of its loop; printed per fit, for the flagship step's
-    arguments and chip_smoke.py's crafted "plain" case, beside the call's
-    device time (CUDA graph replay, the build without the profile)."""
-    import ctypes
-    import subprocess
-    import sys
-
-    sys.path.insert(0, root)
-    import chip_smoke as cs
-    from linrad_tpu_torch import derive_geometry, flagship_params
-    from linrad_tpu_torch.ops import blanker as bl
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    lib = bl._fits_lib(("LRT_FITS_PROFILE",))
-    p = flagship_params(fft1_variant="pallas")
-    fits, _ = cs.loop_args(p, cs.make_input(derive_geometry(p), seed=6,
-                                            steps=2), cs.TUNE_HZ, 2)
-    for name, args in (("flagship", fits[1]),
-                       ("crafted plain", cs.fits_edge_args("plain"))):
-        wpad, ppad, candp, bmax, bank, pf, thr, pw, mp, lead, s = args
-        blk = wpad.shape[0] // bmax.shape[0]
-        bl._fits_launch(wpad[None], ppad[None], candp[None], blk, bank, pf,
-                        thr, (True, True, True), pw, mp, lead, s, lib=lib)
-        torch.cuda.synchronize()
-        cycles = (ctypes.c_longlong * 16)()
-        if lib.lrt_blanker_fits_cycles(cycles, 0):
-            raise RuntimeError("no cycle counts from the profiled build")
-        m = cs.valid_fits(args)
-        device = graph_ms(lambda: bl.blanker_fits(*args), 20, 5)
-        total = sum(cycles[:len(FITS_STEPS)]) / m
-        print(f"{root}: blanker_fits {name} {tuple(wpad.shape)}: {m} fits, "
-              f"device_ms {device:.5f} ({1e3 * device / m:.3f} us per fit); "
-              f"cycles per fit (profiled build) {total:.0f}: "
-              + ", ".join(f"{k} {cycles[i] / m:.0f}"
-                          for i, k in enumerate(FITS_STEPS))
-              + f" [{smi}]", flush=True)
-
-
 def main() -> None:
     import argparse
     import subprocess
@@ -271,7 +219,6 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[1])
     ap.add_argument("--other", default=None)
     ap.add_argument("--step", action="store_true")
-    ap.add_argument("--fits", action="store_true")
     ap.add_argument("--one", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
@@ -279,9 +226,6 @@ def main() -> None:
         return
     if not torch.cuda.is_available():
         raise SystemExit("timing: torch.cuda.is_available() is False")
-    if args.fits:
-        _time_fits(here)
-        return
     roots = [here] if args.other is None else [
         args.other, here, here, args.other]
     step = ["--step"] if args.step else []

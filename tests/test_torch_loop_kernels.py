@@ -140,11 +140,43 @@ def _t_tables():
     return tbl.BlankerTables(refbank=_t(BANK), phasefunc=_t(PHASEFUNC))
 
 
+def _assert_fits_contract(wpad, ppad, candp, bmax, *_rest):
+    """blanker_fits' precondition (``_check_fits``), which the kernel rests
+    on: candp is ppad where active and -1 elsewhere, ppad nowhere negative,
+    bmax candp's block maxima; NaN where ppad's is."""
+    assert not bool((ppad < 0).any())
+    active = ~(candp < 0)
+    assert torch.equal(torch.where(active, 0.0, candp),
+                       torch.where(active, 0.0, -1.0))
+    torch.testing.assert_close(candp[active], ppad[active], rtol=0, atol=0,
+                               equal_nan=True)
+    torch.testing.assert_close(
+        bmax, candp.reshape(bmax.shape[0], -1).amax(1), rtol=0, atol=0,
+        equal_nan=True)
+
+
+@pytest.fixture
+def fits_contract(monkeypatch):
+    """Every blanker_fits call of _clever_blanker_blocked checked against
+    the precondition; yields a list with one entry a call."""
+    calls = []
+    fits = tbl.blanker_fits
+
+    def checked(*args):
+        _assert_fits_contract(*args)
+        calls.append(1)
+        return fits(*args)
+
+    monkeypatch.setattr(tbl, "blanker_fits", checked)
+    yield calls
+
+
 @pytest.mark.parametrize("case", list(BLANKER_CASES))
-def test_blanker_fits_against_jax(blanker_runs, case):
+def test_blanker_fits_against_jax(blanker_runs, case, fits_contract):
     """clever_blanker(block_size=256) through blanker_fits (its plain
     version on the CPU) against the JAX blocked blanker at 65,536 samples
-    and 64 fits: nfit exact, weak and pwr within FP32."""
+    and 64 fits: nfit exact, weak and pwr within FP32; the arguments the
+    caller builds meet the operator's precondition."""
     weak, pwr, eligible, (jw, jp, jn) = blanker_runs[case]
     tw, tp, tn = tbl.clever_blanker(
         _t(weak), _t(pwr), _t_tables(), torch.tensor(NOISE_FLOOR),
@@ -152,6 +184,7 @@ def test_blanker_fits_against_jax(blanker_runs, case):
         eligible=None if eligible is None else _t(eligible))
     assert tn.dtype == torch.int32 and tn.shape == ()
     assert int(tn) == int(jn) > 10
+    assert len(fits_contract) == 1
     assert tw.shape == weak.shape and tp.shape == pwr.shape
     assert _rel(tw.numpy(), jw) <= FP32
     assert _rel(tp.numpy(), jp) <= FP32
@@ -324,6 +357,7 @@ def test_kernel_index_model(case, w):
     pulse 64 a fit stages 96 rows at W 32 and 192 at W 64, fewer where
     the window is clamped to the padded stream."""
     args = cs.fits_edge_args(case, CPU)
+    _assert_fits_contract(*args)
     want = tbl._blanker_fits_reference(*args)
     got, staged = _kernel_model(args[:7], *args[7:], w)
     assert int(got[2]) == int(want[2]) >= 5
@@ -336,10 +370,11 @@ def test_kernel_index_model(case, w):
 
 @pytest.mark.parametrize("case", ["ties-blocks", "ties-sub-blocks", "nan",
                                   "inf"])
-def test_small_cases_against_jax(case):
+def test_small_cases_against_jax(case, fits_contract):
     """The plain version through _clever_blanker_blocked against JAX's on
     the tie, NaN and +inf cases: the same candidates in the same order
-    (nfit exact), the NaN where it was, floats within FP32.  A NaN at an
+    (nfit exact), the NaN where it was, floats within FP32; the caller's
+    arguments meet the operator's precondition.  A NaN at an
     active sample does not end the loop on either side: it wins the
     argmax, fits nothing, and the refresh (``cand >= 0``) retires it."""
     weak, pwr, _ = cs.fits_edge_case(case, BANK)
@@ -351,7 +386,7 @@ def test_small_cases_against_jax(case):
     tw, tp, tn = tbl._clever_blanker_blocked(
         _t(weak), _t(pwr), _t_tables(), torch.tensor(NOISE_FLOOR),
         LIMIT_AMP, PW, cs.FITS_EDGE_FITS, cs.FITS_BLOCK)
-    assert int(tn) == int(jn) >= 5
+    assert int(tn) == int(jn) >= 5 and len(fits_contract) == 1
     tp = tp.numpy()
     np.testing.assert_array_equal(np.isnan(tp), np.isnan(pwr))
     np.testing.assert_array_equal(np.isnan(jp), np.isnan(pwr))
