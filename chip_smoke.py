@@ -45,10 +45,17 @@ Phases, in order; any failure raises and the script exits non-zero:
             ptxas lines of every instance;
             sellim_taper (the edge taper) on the flagship's arguments, on
             carriers at fft1 512, 2,048, 4,096, 8,192 and 16,384 (the
-            widest one's budget lasts all 64 passes), at 32,768 (its
-            arrays in global memory) and under vmap over 8 streams: signs
-            exact, gains within 1e-6.  Two runs bit-identical, a replay
-            from a CUDA graph bit-equal to the eager call.  Per case
+            widest one's budget lasts all 64 passes), at 32,768 and 65,536,
+            on twelve crafted cases (TAPER_EDGE_CASES: ties, NaN gains,
+            budgets above 64, the band's ends, a gain of 0 and weak bins
+            with budget, the last two through the kernel's window loop),
+            and under vmap over 8 streams and over 3 with a shared budget:
+            NaNs where the plain version has them, signs exact, gains
+            within 1e-6; per case the tiles' paths (closed form or window
+            loop) as the kernel reports them, held to the precondition,
+            and the kernel's tile size and ptxas lines.  Two runs
+            bit-identical, a replay from a CUDA graph bit-equal to the
+            eager call.  Per case
             device_ms (graph replay), eager ms, the launch floor, bound_ms
             (the bytes these inputs need over 3.35 TB/s, or the operations
             of the iterations that run), the plain version's device_ms
@@ -238,7 +245,10 @@ Phases, in order; any failure raises and the script exits non-zero:
             dial between two fft1 bins, 3 steps (5 with the AFC: it
             acquires after the 4th, and the 5th runs the per-frame
             structure's graph), through the Receiver a user makes: the
-            graphed run bit-equal to graphed=False; against the same
+            passes that each step's sellim_taper inputs need (recorded
+            from the eager run) and whether the kernel's closed form
+            holds on them; the graphed run bit-equal to graphed=False;
+            against the same
             run on the CPU to the parity bars of ROADMAP (counts, liminfo
             signs and the AFC status per step exact; step 0's audio and
             agc_gain, the pipeline's fill left out, to 5e-3); where fft1
@@ -787,6 +797,10 @@ def compare_fits(got, want) -> tuple[float, str]:
 
 def compare_taper(got, want) -> tuple[float, str]:
     (kl,), (rl,) = got, want
+    if not torch.equal(kl.isnan(), rl.isnan()):
+        raise AssertionError("sellim_taper: NaN where the plain version has "
+                             "none, or none where it has one")
+    kl, rl = kl.nan_to_num(), rl.nan_to_num()
     if not torch.equal(torch.sign(kl), torch.sign(rl)):
         raise AssertionError("sellim_taper: the sign pattern differs")
     rel = max_rel(kl, rl)
@@ -989,17 +1003,144 @@ def fits_vmap_case(dev: dict, streams: list, floor: float) -> dict:
     return rep
 
 
+# Crafted (lim, budget) pairs for sellim_taper, as update_liminfo builds
+# them (lim the gain on strong segments and 0 elsewhere, budget width/4 + 1
+# on them and 0 elsewhere) over random segments, held against the plain
+# version here on the card and, through a numpy model of the kernel, on the
+# CPU (tests/test_torch_loop_kernels.py): a tie between two fronts (at 11
+# bins and at 1), a NaN gain with and without budget, adjacent segments of
+# different gains and a negative gain, budgets 1.25 to 2.75, budgets above
+# 64 (the passes' cap binds), sources on the band's first and last bins, a
+# gap of 200 bins, a strong segment of gain 0 and weak bins with budget >=
+# 1 (the closed form's precondition broken: the window loop), n 512 and
+# 2,944 (not a multiple of the tile), and three of them stacked as a
+# fleet's streams.
+TAPER_EDGE_CASES = ("tie", "nan", "adjacent", "fractional",
+                    "budget-above-64", "ends", "long-gap", "gain-zero",
+                    "weak-budget", "n512", "n2944", "vmap")
+TAPER_VMAP_CASES = ("tie", "nan", "gain-zero")
+
+
+def taper_edge_case(name: str) -> tuple[np.ndarray, np.ndarray]:
+    """(lim, budget) float32 of one crafted case: (n,) each, or (3, n)
+    for "vmap"."""
+    if name == "vmap":
+        return tuple(np.stack(x) for x in zip(
+            *(taper_edge_case(c) for c in TAPER_VMAP_CASES)))
+    rng = np.random.default_rng(TAPER_EDGE_CASES.index(name))
+    n = {"n512": 512, "n2944": 2944}.get(name, 2048)
+    lim = np.zeros(n, np.float32)
+    bud = np.zeros(n, np.float32)
+
+    def seg(lo: int, width: int, gain: float, budget=None) -> None:
+        lim[lo:lo + width] = gain
+        bud[lo:lo + width] = width / 4 + 1 if budget is None else budget
+
+    def clear(lo: int, hi: int) -> None:
+        lim[lo:hi] = bud[lo:hi] = 0.0
+
+    for _ in range(n // 170):
+        seg(int(rng.integers(0, n - 24)), int(rng.integers(1, 25)),
+            float(rng.uniform(0.05, 1.0)))
+    if name == "tie":
+        clear(380, 620)
+        seg(400, 40, 0.3)               # budgets 11: bin 450 is 11 bins
+        seg(461, 40, 0.7)               # from both fronts
+        seg(560, 4, 0.2)                # bin 564 one bin from both
+        seg(565, 4, 0.9)
+        seg(580, 8, 0.5)                # equal gains, 4 bins between
+        seg(592, 8, 0.5)
+    elif name == "nan":
+        clear(640, 1300)
+        seg(650, 40, 0.4)               # its front reaches 699, which
+        seg(700, 10, np.nan)            # the NaN (budget 3.5) keeps dark
+        seg(712, 48, 0.2)               # lights 711; 710 stays dark
+        seg(1200, 1, np.nan, 0.5)       # a NaN without budget blocks
+        seg(1210, 40, 0.5)              # nothing: 1201-1209 lit
+    elif name == "adjacent":
+        clear(280, 420)
+        seg(300, 20, 0.1)
+        seg(320, 10, 0.9)
+        seg(330, 1, 2.0)
+        seg(340, 1, -1.0, 5.0)          # lights and blocks nothing
+        seg(345, 6, 0.6)
+    elif name == "fractional":
+        clear(800, 1000)
+        for k, width in enumerate((1, 2, 3, 4, 7)):   # 1.25 ... 2.75
+            seg(820 + 20 * k, width, 0.5)
+    elif name == "budget-above-64":
+        clear(200, 1900)
+        seg(600, 300, 0.8)              # budget 76
+        seg(1200, 262, 0.3)             # 66.5; 300 bins between
+    elif name == "ends":
+        clear(0, 40)
+        clear(n - 40, n)
+        seg(0, 1, 0.7)                  # budget 1.25: lights bin 1
+        seg(20, 3, 0.5)
+        seg(n - 1, 1, 0.4, 9.0)         # lights n - 10 ... n - 2
+    elif name == "long-gap":
+        clear(300, 1100)
+        seg(300, 280, 0.6)              # budgets 71: 64 bins lit on each
+        seg(780, 280, 0.4)              # side of a gap of 200
+    elif name == "gain-zero":
+        clear(400, 700)
+        seg(450, 20, 0.0)               # a +inf power bin's segment
+        seg(470, 10, 0.5)
+        seg(520, 5, 0.3)
+    elif name == "weak-budget":
+        clear(1000, 1200)
+        seg(1020, 8, 0.5)
+        bud[1030:1036] = 2.0
+        bud[1100] = 1.0
+        seg(1105, 4, 0.7)
+    elif name == "n512":
+        clear(360, 420)
+        seg(0, 2, 0.9)
+        seg(370, 30, 0.5)               # across the first tile's end
+    elif name == "n2944":
+        clear(2660, 2720)
+        seg(2670, 30, 0.5)              # across the last tile's start
+        seg(n - 2, 2, 0.3)
+    return lim, bud
+
+
+def taper_edge_args(name: str, device="cuda") -> tuple:
+    """sellim_taper's (lim, budget) for one crafted case on ``device``."""
+    return tuple(torch.from_numpy(x).to(device)
+                 for x in taper_edge_case(name))
+
+
+def taper_expected_paths(lim: torch.Tensor, budget: torch.Tensor,
+                         tile: int) -> list:
+    """Per stream, per tile of ``tile`` bins: 1 where a weak bin of the
+    tile or of the 64 bins on each side has budget >= 1 (the kernel runs
+    the window loop there), else 0."""
+    from linrad_tpu_torch.ops import sellim as sl
+    lim = lim.reshape(-1, lim.shape[-1]).cpu().numpy()
+    budget = np.broadcast_to(budget.cpu().numpy(), lim.shape)
+    n, h = lim.shape[1], sl.TAPER_STEPS
+    return [[int(np.any((lw[max(0, t - h):t + tile + h] == 0)
+                        & ~(bw[max(0, t - h):t + tile + h] < 1)))
+             for t in range(0, n, tile)] for lw, bw in zip(lim, budget)]
+
+
 def taper_case(dev: dict, label: str, lim: torch.Tensor,
                budget: torch.Tensor, floor: float,
                plain_device: bool = True, main: bool = False) -> dict:
     """sellim_taper on (lim, budget) of one stream or, stacked, of a
-    fleet's streams under torch.func.vmap."""
+    fleet's streams under torch.func.vmap (a (n,) budget shared by them);
+    the tiles' paths as the kernel reports them, against the
+    precondition."""
     from linrad_tpu_torch.ops import sellim as sl
     if lim.dim() == 2:
-        kernel = lambda: (torch.func.vmap(sl.sellim_taper)(lim, budget),)
+        shared = budget.dim() == 1
+        budgets = [budget] * len(lim) if shared else list(budget)
+        kernel = lambda: (torch.func.vmap(
+            sl.sellim_taper, in_dims=(0, None if shared else 0))(
+                lim, budget),)
         plain = lambda: (torch.stack([sl._sellim_taper_reference(a, b)
-                                      for a, b in zip(lim, budget)]),)
-        passes = [taper_passes(a, b) for a, b in zip(lim, budget)]
+                                      for a, b in zip(lim, budgets)]),)
+        passes = [taper_passes(a, b) for a, b in zip(lim, budgets)]
         before = sl.taper_count.launches
         kernel()
         if sl.taper_count.launches != before + 1:
@@ -1009,11 +1150,97 @@ def taper_case(dev: dict, label: str, lim: torch.Tensor,
         kernel = lambda: (sl.sellim_taper(lim, budget),)
         plain = lambda: (sl._sellim_taper_reference(lim, budget),)
         passes = [taper_passes(lim, budget)]
+    got, paths = sl.taper_paths(lim, budget)
+    paths = paths.tolist()
+    if paths != taper_expected_paths(lim, budget, sl.TAPER_TILE):
+        raise AssertionError(f"sellim_taper {label}: the kernel's paths "
+                             f"{paths} are not the precondition's")
+    if not same_bits(got, kernel()[0]):
+        raise AssertionError(f"sellim_taper {label}: the launch that "
+                             f"reports its paths differs")
+    looped = sum(map(sum, paths))
+    tiles = sum(map(len, paths))
     n = lim.shape[-1]
-    return loop_case(dev, "sellim_taper",
-                     f"{label} {tuple(lim.shape)}, passes run {passes}",
-                     kernel, plain, compare_taper, 12 * lim.numel(),
-                     12 * n * sum(passes), floor, 20, plain_device, main)
+    rep = loop_case(dev, "sellim_taper",
+                    f"{label} {tuple(lim.shape)}, passes run {passes}",
+                    kernel, plain, compare_taper, 12 * lim.numel(),
+                    12 * n * sum(passes), floor, 20, plain_device, main)
+    rep["paths"] = {"closed form": tiles - looped, "window loop": looped}
+    print(f"loops sellim_taper {label}: {tiles} tiles of {sl.TAPER_TILE} "
+          f"bins, {tiles - looped} in closed form, {looped} by the window "
+          f"loop", flush=True)
+    return rep
+
+
+def phase_taper(dev: dict, floor: float | None = None,
+                tapers: list | None = None) -> dict:
+    """sellim_taper's cases of phase 3b: the flagship's arguments (those
+    recorded from eager flagship steps, made here where not given), the
+    carriers at each preset's fft1 size, past 32,768 bins, the crafted
+    cases and a fleet's streams under vmap."""
+    from linrad_tpu_torch import RxMode, derive_geometry, flagship_params
+    from linrad_tpu_torch import preset
+    from linrad_tpu_torch.ops import fused_fft1 as ff
+    from linrad_tpu_torch.ops import sellim as sl
+    from linrad_tpu_torch.utils import cuda_build
+    from linrad_tpu_torch.utils.timing import graph_ms
+    t0 = time.perf_counter()
+    print(f"loops sellim_taper: tiles of {sl.TAPER_TILE} bins with halos of "
+          f"{sl.TAPER_STEPS} on each side, one block of "
+          f"{sl.TAPER_TILE + 2 * sl.TAPER_STEPS} threads a tile and stream")
+    for line in cuda_build.build("sellim_taper")[1]["log"].splitlines():
+        if any(w in line for w in ("entry function", "registers", "spill",
+                                   "smem")):
+            print(f"loops sellim_taper ptxas: {line.strip()}")
+    if floor is None:
+        cuda = torch.device("cuda", torch.cuda.current_device())
+        floor = graph_ms(lambda: ff.empty_launch(cuda), 50, 20)
+    if tapers is None:
+        p = flagship_params(fft1_variant="pallas")
+        steps = LOOP_STREAMS + 1
+        tapers = loop_args(p, make_input(derive_geometry(p), seed=6,
+                                         steps=steps), TUNE_HZ, steps)[1]
+    taper_rep = {"flagship": taper_case(dev, "flagship", *tapers[1],
+                                        floor, main=True)}
+    inputs = {}
+    for mode in TAPER_MODES:
+        pt = flagship_params() if mode is None else preset(RxMode[mode])
+        gt = derive_geometry(pt)
+        n = gt.fft1_size
+        spec = torch.from_numpy(taper_spectrum(n, n)).cuda()
+        args = record_calls(sl, "sellim_taper", lambda: sl.update_liminfo(
+            gt, sl.SellimState.create(gt, "cuda"), spec, 8.0, ston=30.0))
+        inputs[n] = args[0][:2]
+        # the plain version's device time hardly depends on n (a fixed
+        # count of launches): taken at the largest size only
+        taper_rep[n] = taper_case(dev, f"{mode or 'flagship'} carriers",
+                                  *inputs[n], floor,
+                                  plain_device=mode == "QRSS")
+    big = max(inputs)
+    for k in (2, 4):
+        taper_rep[k * big] = taper_case(
+            dev, f"{k} QRSS bands side by side",
+            *(torch.cat([x] * k) for x in inputs[big]), floor,
+            plain_device=False)
+    for name in TAPER_EDGE_CASES:
+        taper_rep[f"edge {name}"] = taper_case(
+            dev, f"edge {name}", *taper_edge_args(name), floor,
+            plain_device=False)
+    lim, budget = taper_edge_args("vmap")
+    taper_rep["edge vmap shared budget"] = taper_case(
+        dev, "edge vmap, one budget shared", lim, budget[0], floor,
+        plain_device=False)
+    paths = [r["paths"] for r in taper_rep.values()]
+    if not any(p["window loop"] for p in paths) \
+            or not any(p["closed form"] for p in paths):
+        raise AssertionError(f"sellim_taper: the cases did not reach both "
+                             f"paths: {paths}")
+    taper_rep["vmap"] = taper_case(
+        dev, f"vmap R={LOOP_STREAMS}",
+        *(torch.stack([t[i] for t in tapers[1:]]) for i in (0, 1)), floor)
+    print(f"loops sellim_taper: {len(taper_rep)} cases in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return taper_rep
 
 
 def phase_loop_kernels(dev: dict) -> dict:
@@ -1023,7 +1250,6 @@ def phase_loop_kernels(dev: dict) -> dict:
     from linrad_tpu_torch import preset
     from linrad_tpu_torch.io.modeinput import mode_input
     from linrad_tpu_torch.ops import fused_fft1 as ff
-    from linrad_tpu_torch.ops import sellim as sl
     from linrad_tpu_torch.utils.timing import graph_ms
     from linrad_tpu_torch.utils import cuda_build
     t0 = time.perf_counter()
@@ -1075,29 +1301,7 @@ def phase_loop_kernels(dev: dict) -> dict:
         raise AssertionError(f"the past-plan cases do not reach the bank in "
                              f"L2 and the wider sub-blocks: {plans}")
 
-    taper_rep = {"flagship": taper_case(dev, "flagship", *tapers[1],
-                                        floor, main=True)}
-    inputs = {}
-    for mode in TAPER_MODES:
-        pt = flagship_params() if mode is None else preset(RxMode[mode])
-        gt = derive_geometry(pt)
-        n = gt.fft1_size
-        spec = torch.from_numpy(taper_spectrum(n, n)).cuda()
-        args = record_calls(sl, "sellim_taper", lambda: sl.update_liminfo(
-            gt, sl.SellimState.create(gt, "cuda"), spec, 8.0, ston=30.0))
-        inputs[n] = args[0][:2]
-        # the plain version's device time hardly depends on n (a fixed
-        # count of launches): taken at the largest size only
-        taper_rep[n] = taper_case(dev, f"{mode or 'flagship'} carriers",
-                                  *inputs[n], floor,
-                                  plain_device=mode == "QRSS")
-    big = max(inputs)
-    taper_rep[2 * big] = taper_case(
-        dev, "two QRSS bands side by side (global memory)",
-        *(torch.cat([x, x]) for x in inputs[big]), floor, plain_device=False)
-    taper_rep["vmap"] = taper_case(
-        dev, f"vmap R={LOOP_STREAMS}",
-        *(torch.stack([t[i] for t in tapers[1:]]) for i in (0, 1)), floor)
+    taper_rep = phase_taper(dev, floor, tapers)
     print(f"loops: kernels against their plain versions in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     phase_loop_chain(dev)
@@ -3928,6 +4132,7 @@ def phase_presets(dev: dict, device="cuda", modes=None) -> int:
     eagerly; no timing)."""
     from linrad_tpu_torch import RxMode, derive_geometry, preset
     from linrad_tpu_torch.io.modeinput import mode_input
+    from linrad_tpu_torch.ops import sellim as sl
     t0 = time.perf_counter()
     on_card = torch.device(device).type == "cuda"
     graphed = None if on_card else True
@@ -3940,7 +4145,14 @@ def phase_presets(dev: dict, device="cuda", modes=None) -> int:
         steps = PRESET_AFC_STEPS if p.afc_enable else PRESET_STEPS
         iq = mode_input(mode, geo, steps + PRESET_TIME_STEPS, PRESET_DIAL_HZ)
         g, g_outs, g_status = run_preset(p, iq, device, graphed, steps)
-        e, e_outs, e_status = run_preset(p, iq, device, False, steps)
+        eager = []
+        tapers = record_calls(sl, "sellim_taper", lambda: eager.append(
+            run_preset(p, iq, device, False, steps)))
+        e, e_outs, e_status = eager[0]
+        print(f"{label}sellim_taper: passes its inputs need per step "
+              f"{[taper_passes(*a) for a in tapers] or 'no call'}, closed "
+              f"form's precondition holds "
+              f"{[sl.taper_closed_form_holds(*a) for a in tapers]}")
         same_outputs(g_outs, e_outs, f"{label}graph against eager")
         if g_status != e_status:
             raise AssertionError(f"{label}AFC {g_status} != {e_status}")

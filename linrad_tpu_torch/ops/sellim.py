@@ -11,11 +11,12 @@ The steps and their order are those of the JAX version; see its module
 docstring for the reference line numbers of each.  Step 4's edge taper,
 a ``fori_loop`` of ``TAPER_STEPS`` passes there, is :func:`sellim_taper`:
 on a CUDA tensor one launch of the hand-written kernel in
-``csrc/sellim_taper.cu``, which runs every pass inside the kernel; on a
-CPU tensor its plain version :func:`_sellim_taper_reference`.  There is
-no fallback between the two.  It is a PyTorch custom operator with a rule
-for ``torch.func.vmap``: a fleet of R receivers makes one launch of R
-blocks.
+``csrc/sellim_taper.cu``, which computes tiles of ``TAPER_TILE`` bins in
+closed form (or, where the closed form's precondition fails, by the
+passes over the tile and its halos); on a CPU tensor its plain version
+:func:`_sellim_taper_reference`.  There is no fallback between the two.
+It is a PyTorch custom operator with a rule for ``torch.func.vmap``: a
+fleet of R receivers makes one launch.
 """
 
 from __future__ import annotations
@@ -198,12 +199,31 @@ def _sellim_taper_reference(lim: torch.Tensor,
     return lim
 
 
-TAPER_SHARED_MAX_N = 16_384     # the kernel's kSharedMaxN
+TAPER_TILE = 384        # the kernel's kTile: the bins a block writes
 # launches of csrc/sellim_taper.cu, made and recorded into CUDA graphs
 taper_count = cuda_build.LaunchCount()
 
 
+def taper_closed_form_holds(lim: torch.Tensor,
+                            budget: torch.Tensor) -> bool:
+    """The precondition of the kernel's closed form: every weak bin
+    (``lim == 0``) has budget < 1."""
+    return not bool(((lim == 0.0) & ~(budget < 1.0)).any())
+
+
 def _check_taper(lim: torch.Tensor, budget: torch.Tensor) -> None:
+    """Refuse what the kernel does not take: anything but (n,) float32
+    tensors of one length on one device.
+
+    Every (lim, budget) is taken and given the passes' result.  The kernel
+    computes a tile in closed form where every weak bin of the tile and of
+    its two halos of ``TAPER_STEPS`` bins has budget < 1
+    (:func:`taper_closed_form_holds`), and runs the passes themselves over
+    that window where one does not.  ``update_liminfo`` hands it
+    ``lim = where(strong, gain, 0)`` and ``budget = where(strong,
+    width/4 + 1, 0)``, which break the precondition only where a strong
+    segment's gain is 0: a +inf power bin (``clamp(min=1e-30)`` keeps it,
+    so the segment's maximum is inf) or ``maxlevel = 0`` (limit 0)."""
     if lim.dtype != torch.float32 or budget.dtype != torch.float32 \
             or lim.dim() != 1 or lim.shape != budget.shape \
             or lim.shape[0] == 0:
@@ -221,32 +241,57 @@ def _check_taper(lim: torch.Tensor, budget: torch.Tensor) -> None:
 def _taper_fn():
     """The C launcher of csrc/sellim_taper.cu, built at first use."""
     lib, _info = cuda_build.build("sellim_taper")
+    lib.lrt_sellim_taper_tile.argtypes = []
+    lib.lrt_sellim_taper_tile.restype = ctypes.c_int
+    tile = lib.lrt_sellim_taper_tile()
+    if tile != TAPER_TILE:
+        raise RuntimeError(f"sellim_taper: the kernel's tile is {tile}, "
+                           f"TAPER_TILE {TAPER_TILE}")
     fn = lib.lrt_sellim_taper
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _taper_launch(lim: torch.Tensor, budget: torch.Tensor) -> torch.Tensor:
+def _taper_launch(lim: torch.Tensor, budget: torch.Tensor,
+                  paths: torch.Tensor | None = None) -> torch.Tensor:
     """One launch for R streams: lim and budget (R, n), or (n,) for one
-    stream; a (n,) budget under a (R, n) lim serves every stream."""
+    stream; a (n,) budget under a (R, n) lim serves every stream.  paths,
+    where given, is an int32 tensor of (R, tiles) that the kernel sets to
+    1 where a tile ran the window loop and 0 where it took the closed
+    form."""
     dev = lim.device
     n = lim.shape[-1]
     r = lim.shape[0] if lim.dim() == 2 else 1
     lim = lim.contiguous()
     budget = budget.contiguous()
     out = torch.empty((r, n), dtype=torch.float32, device=dev)
-    scratch = torch.empty(4 * r * n if n > TAPER_SHARED_MAX_N else 0,
-                          dtype=torch.float32, device=dev)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     cuda_build.launch(_taper_fn(), (
         lim.data_ptr(), budget.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), n if lim.dim() == 2 else 0,
-        n if budget.dim() == 2 else 0, n, TAPER_STEPS, r, stream), dev,
-        f"sellim_taper at ({r}, {n})")
+        None if paths is None else paths.data_ptr(),
+        n if lim.dim() == 2 else 0, n if budget.dim() == 2 else 0, n, r,
+        stream), dev, f"sellim_taper at ({r}, {n})")
     taper_count.add()
     return out
+
+
+def taper_paths(lim: torch.Tensor, budget: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch on a card, as :func:`sellim_taper` or its vmap rule
+    makes it, that also reports each tile's path: (the new lim, (R,
+    tiles) int32, 1 where the tile ran the window loop)."""
+    _check_taper(lim[0] if lim.dim() == 2 else lim,
+                 budget[0] if budget.dim() == 2 else budget)
+    if lim.device.type != "cuda":
+        raise ValueError(f"taper_paths: a CUDA tensor is needed, got "
+                         f"{lim.device}")
+    r = lim.shape[0] if lim.dim() == 2 else 1
+    paths = torch.full((r, -(-lim.shape[-1] // TAPER_TILE)), -1,
+                       dtype=torch.int32, device=lim.device)
+    out = _taper_launch(lim, budget, paths)
+    return out if lim.dim() == 2 else out[0], paths
 
 
 @torch.library.custom_op("linrad_tpu_torch::sellim_taper", mutates_args=())
@@ -261,9 +306,9 @@ def sellim_taper(lim: torch.Tensor, budget: torch.Tensor) -> torch.Tensor:
     changed.
 
     A PyTorch custom operator (``torch.ops.linrad_tpu_torch.sellim_taper``)
-    with a rule for ``torch.func.vmap``: R streams make one launch of R
-    blocks (:func:`_sellim_taper_vmap`).  Its launches are counted in
-    ``taper_count``."""
+    with a rule for ``torch.func.vmap``: R streams make one launch, a grid
+    of tiles by streams (:func:`_sellim_taper_vmap`).  Its launches are
+    counted in ``taper_count``."""
     _check_taper(lim, budget)
     if lim.device.type == "cpu":
         return _sellim_taper_reference(lim, budget)
@@ -278,7 +323,7 @@ def _sellim_taper_fake(lim, budget):
 
 @sellim_taper.register_vmap
 def _sellim_taper_vmap(info, in_dims, lim, budget):
-    """R streams: on the card one launch of R blocks; on the CPU the plain
+    """R streams: on the card one launch for all; on the CPU the plain
     version once per stream."""
     r = info.batch_size
     l_dim, b_dim = in_dims

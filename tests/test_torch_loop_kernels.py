@@ -19,6 +19,12 @@ On the CPU each wrapper runs its plain version, so these tests hold:
   refresh), bit for bit against the plain version on ``chip_smoke.py``'s
   crafted cases, and the plain version against JAX on the tie, NaN and
   +inf cases;
+- a numpy model of the taper kernel (tiles with halos, the closed form,
+  the window loop where its precondition fails), bit for bit against the
+  plain version on ``chip_smoke.py``'s crafted cases and on random ones,
+  the precondition asserted on every call ``update_liminfo`` makes, and
+  ``update_liminfo`` against JAX where it breaks the precondition (a
+  +inf power bin, maxlevel 0);
 - what the wrappers refuse.
 
 The kernels themselves run on the card only: ``chip_smoke.py``'s loop
@@ -420,37 +426,64 @@ def _carrier_spectrum(rng, n, step, wide=True):
     return p.astype(np.float32)
 
 
+def _jax_steps(params, spectra, maxlevel=8.0):
+    """Successive updates through JAX's update_liminfo (jitted) over the
+    spectra: (spectrum, sel_lo, sel_hi, liminfo, liminfo_wait) each."""
+    geo = derive_geometry(params)
+    n = geo.fft1_size
+    upd = jax.jit(lambda s, p, lo, hi, geo=geo: jsellim.update_liminfo(
+        geo, s, p, maxlevel, ston=30.0, sel_lo=lo, sel_hi=hi))
+    st = jsellim.SellimState.create(geo)
+    steps = []
+    for p in spectra:
+        lo, hi = n // 8, n // 8 + 6
+        st = upd(st, jnp.asarray(p), jnp.int32(lo), jnp.int32(hi))
+        steps.append((p, lo, hi, np.asarray(st.liminfo),
+                      np.asarray(st.liminfo_wait)))
+    return steps
+
+
 @pytest.fixture(scope="module")
 def taper_runs():
     """Three successive updates per geometry through JAX's update_liminfo
     (jitted), with the spectra fed."""
     runs = {}
     for name, params in _geometries().items():
-        geo = derive_geometry(params)
-        n = geo.fft1_size
+        n = derive_geometry(params).fft1_size
         rng = np.random.default_rng(n)
-        upd = jax.jit(lambda s, p, lo, hi, geo=geo: jsellim.update_liminfo(
-            geo, s, p, 8.0, ston=30.0, sel_lo=lo, sel_hi=hi))
-        st = jsellim.SellimState.create(geo)
-        steps = []
-        for step in range(3):
-            p = _carrier_spectrum(rng, n, step)
-            lo, hi = n // 8, n // 8 + 6
-            st = upd(st, jnp.asarray(p), jnp.int32(lo), jnp.int32(hi))
-            steps.append((p, lo, hi, np.asarray(st.liminfo),
-                          np.asarray(st.liminfo_wait)))
-        runs[name] = (params, steps)
+        runs[name] = (params, _jax_steps(
+            params, [_carrier_spectrum(rng, n, step) for step in range(3)]))
     return runs
 
 
-def _t_update(params, steps):
-    """The port's update_liminfo over the same spectra; yields its states."""
+def _t_update(params, steps, maxlevel=8.0, holds=None):
+    """The port's update_liminfo over the same spectra; yields its states.
+    Each (lim, budget) handed to sellim_taper goes through
+    taper_closed_form_holds, whose answers go into ``holds`` where given
+    (and the model of the kernel then gives the plain version's bits on
+    it) and must be True where not."""
     tgeo = t_derive_geometry(convert.params_from_jax(params))
     st = tsellim.SellimState.create(tgeo, CPU)
+    real = tsellim.sellim_taper
+    seen = [] if holds is None else holds
+
+    def checking(lim, budget):
+        seen.append(tsellim.taper_closed_form_holds(lim, budget))
+        assert holds is not None or seen[-1]
+        out = real(lim, budget)
+        if holds is not None:
+            assert _same_bits(_taper_model(lim.numpy(), budget.numpy())[0],
+                              out.numpy())
+        return out
+
     for p, lo, hi, _jl, _jw in steps:
-        st = tsellim.update_liminfo(tgeo, st, _t(p), 8.0, ston=30.0,
-                                    sel_lo=torch.tensor(lo),
-                                    sel_hi=torch.tensor(hi))
+        tsellim.sellim_taper = checking
+        try:
+            st = tsellim.update_liminfo(tgeo, st, _t(p), maxlevel,
+                                        ston=30.0, sel_lo=torch.tensor(lo),
+                                        sel_hi=torch.tensor(hi))
+        finally:
+            tsellim.sellim_taper = real
         yield st
 
 
@@ -467,12 +500,43 @@ def test_taper_through_update_liminfo(taper_runs, name):
         assert (jl > 0).sum() > 20
 
 
+def _broken_spectra(case: str, n: int) -> list:
+    """Three spectra whose update breaks the closed form's precondition:
+    a +inf power bin at a strong carrier's centre in the second (its
+    segment's gain is 0, its budget not), or plain carriers for maxlevel
+    0 (limit 0: every bin strong at gain 0)."""
+    rng = np.random.default_rng(n + 3)
+    spectra = [_carrier_spectrum(rng, n, step) for step in range(3)]
+    if case == "inf":
+        spectra[1][n // 5 + 1] = np.inf
+    return spectra
+
+
+@pytest.mark.parametrize("case", ["inf", "maxlevel-0"])
+def test_taper_broken_precondition_update(case):
+    """update_liminfo of the port against JAX's where the taper's inputs
+    break the closed form's precondition (the kernel's window loop):
+    liminfo signs and liminfo_wait exact, gains within FP32."""
+    n = GEO.fft1_size
+    maxlevel = 0.0 if case == "maxlevel-0" else 8.0
+    steps = _jax_steps(FLAGSHIP, _broken_spectra(case, n), maxlevel)
+    holds = []
+    for st, (_p, _lo, _hi, jl, jw) in zip(
+            _t_update(FLAGSHIP, steps, maxlevel, holds), steps):
+        tl = st.liminfo.numpy()
+        np.testing.assert_array_equal(np.sign(tl), np.sign(jl))
+        np.testing.assert_array_equal(st.liminfo_wait.numpy(), jw)
+        assert _rel(tl, jl) <= FP32
+    assert holds == ([True, False, True] if case == "inf" else [False] * 3)
+
+
 def _taper_inputs(params, steps):
     """The (lim, budget) each update hands sellim_taper."""
     seen = []
     real = tsellim.sellim_taper
 
     def recording(lim, budget):
+        assert tsellim.taper_closed_form_holds(lim, budget)
         seen.append((lim.clone(), budget.clone()))
         return real(lim, budget)
 
@@ -522,6 +586,198 @@ def test_taper_vmap(taper_runs):
                                                         budgets[i]))
         assert torch.equal(shared[i], tsellim.sellim_taper(lims[i], b0))
     assert not torch.equal(got[0], got[1])
+
+
+# ---- a numpy model of the taper kernel ---------------------------------
+#
+# csrc/sellim_taper.cu computes tiles of TAPER_TILE bins, each from a
+# window of SLOTS slots (the tile and 64 bins on each side, zero past the
+# band's ends): in closed form where every weak bin of the window has
+# budget < 1, else by the passes over the window's real bins.  The model
+# follows the kernel slot by slot (the nearest nonzero slots, each source's
+# two chains and how far they run, the selection, the window loop) and is
+# held bit for bit to the plain version.  Change both together.
+
+TILE, HALO = tsellim.TAPER_TILE, tsellim.TAPER_STEPS
+SLOTS = TILE + 2 * HALO
+NEVER = 1 << 30
+
+
+def _pow09(x: np.ndarray) -> np.ndarray:
+    """float32 x ** 0.9 as the plain version's passes compute it here:
+    torch's vectorized pow on the CPU (the elements past the last whole
+    vector of a call take a scalar routine whose bits differ, so x is
+    padded to a multiple of 64; the cases keep n a multiple of 64 for the
+    same reason)."""
+    m = len(x)
+    t = torch.from_numpy(np.concatenate([x, np.ones(-m % 64, np.float32)]))
+    return (t ** 0.9).numpy()[:m]
+
+
+def _model_pass(lim: np.ndarray, budget: np.ndarray):
+    """One pass of the taper, edge-replicated (the JAX taper_body)."""
+    sh_r = lambda x: np.concatenate([x[:1], x[:-1]])
+    sh_l = lambda x: np.concatenate([x[1:], x[-1:]])
+    bl, br = sh_r(budget), sh_l(budget)
+    cand = np.maximum(np.where(bl >= 1, sh_r(lim), np.float32(0)),
+                      np.where(br >= 1, sh_l(lim), np.float32(0)))
+    new = (lim == 0) & (cand > 0)
+    return (np.where(new, _pow09(cand), lim),
+            np.where(new, np.maximum(bl - 1, br - 1), budget))
+
+
+def _model_closed_form(L: np.ndarray, B: np.ndarray,
+                       core_end: int) -> np.ndarray:
+    """The kernel's closed form over one window's slots."""
+    j = np.arange(SLOTS)
+    nz = L != 0
+    left = np.maximum.accumulate(np.where(nz, j, -1))
+    left = np.concatenate([[-1], left[:-1]])          # nearest set < j
+    right = np.minimum.accumulate(np.where(nz, j, NEVER)[::-1])[::-1]
+    right = np.concatenate([right[1:], [NEVER]])      # nearest set > j
+    dl = np.where((left >= 0) & (j - left <= HALO), j - left, 0)
+    dr = np.where((right < NEVER) & (right - j <= HALO), right - j, 0)
+    cl, cr = L.copy(), L.copy()
+    src = np.nonzero((L > 0) & (B >= 1))[0]
+    by_budget = np.where(B[src] >= HALO, HALO,
+                         np.floor(np.minimum(B[src], HALO))).astype(int)
+
+    def reach(gap):
+        return np.where(gap > 0, np.minimum(by_budget, gap - 1), by_budget)
+
+    kr = np.where(src + 1 < core_end,
+                  np.minimum(reach(dr[src]), core_end - 1 - src), 0)
+    kl = np.where(src - 1 >= HALO, np.minimum(reach(dl[src]), src - HALO), 0)
+    chain = L[src]                  # both fronts of a source carry it
+    for k in range(1, HALO + 1):
+        chain = _pow09(chain)
+        cl[src[k <= kr] + k] = chain[k <= kr]
+        cr[src[k <= kl] - k] = chain[k <= kl]
+    out = L.copy()
+    jj = np.nonzero((j >= HALO) & (j < core_end) & (L == 0))[0]
+    d_l, d_r = dl[jj], dr[jj]
+    gl, bl = L[jj - d_l], B[jj - d_l]
+    gr, br = L[jj + d_r], B[jj + d_r]
+    tl = np.where((d_l > 0) & (gl > 0) & (bl >= d_l), d_l, NEVER)
+    tr = np.where((d_r > 0) & (gr > 0) & (br >= d_r), d_r, NEVER)
+    dark = ((d_l == 1) & np.isnan(gl) & (bl >= 1)) \
+        | ((d_r == 1) & np.isnan(gr) & (br >= 1))
+    tie = _pow09(np.maximum(cl[jj - 1], cr[jj + 1]))
+    val = np.where(tl < tr, cl[jj], np.where(tr < tl, cr[jj], tie))
+    lit = ~dark & ((tl < NEVER) | (tr < NEVER))
+    out[jj] = np.where(lit, val, L[jj])
+    return out
+
+
+def _taper_model(lim: np.ndarray, budget: np.ndarray):
+    """The kernel on one stream: (the new lim, per tile 1 where it ran the
+    window loop)."""
+    n = len(lim)
+    out, paths = lim.copy(), []
+    for t0 in range(0, n, TILE):
+        lo, hi = max(0, HALO - t0), min(SLOTS, n - t0 + HALO)
+        core_end = min(HALO + TILE, hi)
+        L = np.zeros(SLOTS, np.float32)
+        B = np.zeros(SLOTS, np.float32)
+        L[lo:hi] = lim[t0 - HALO + lo:t0 - HALO + hi]
+        B[lo:hi] = budget[t0 - HALO + lo:t0 - HALO + hi]
+        looped = bool(np.any((L[lo:hi] == 0) & ~(B[lo:hi] < 1)))
+        paths.append(int(looped))
+        if looped:
+            wl, wb = L[lo:hi], B[lo:hi]
+            for _ in range(HALO):
+                new, wb = _model_pass(wl, wb)
+                if np.array_equal(new.view(np.int32), wl.view(np.int32)):
+                    break
+                wl = new
+            L[lo:hi] = wl
+        else:
+            L = _model_closed_form(L, B, core_end)
+        out[t0:t0 + core_end - HALO] = L[HALO:core_end]
+    return out, paths
+
+
+def _same_bits(a, b) -> bool:
+    return np.array_equal(np.asarray(a, np.float32).view(np.int32),
+                          np.asarray(b, np.float32).view(np.int32))
+
+
+@pytest.mark.parametrize("name", cs.TAPER_EDGE_CASES)
+def test_taper_model_edge_cases(name):
+    """The model of the kernel, bit for bit against the plain version on
+    chip_smoke.py's crafted cases (the arguments phase 3b hands the card),
+    with the tiles' paths as the precondition gives them; the vmap case
+    also through the operator's vmap rule, with its own budgets and with
+    one shared."""
+    lim, budget = cs.taper_edge_args(name, CPU)
+    lims = lim.reshape(-1, lim.shape[-1])
+    buds = budget.reshape(-1, budget.shape[-1])
+    paths = []
+    for l, b in zip(lims, buds):
+        want = tsellim._sellim_taper_reference(l, b).numpy()
+        got, p = _taper_model(l.numpy(), b.numpy())
+        assert _same_bits(got, want), np.nonzero(
+            got.view(np.int32) != want.view(np.int32))
+        paths.append(p)
+    assert paths == cs.taper_expected_paths(lim, budget, TILE)
+    looped = sum(map(sum, paths))
+    if name in ("gain-zero", "weak-budget", "vmap"):
+        assert looped >= 1
+    else:
+        assert looped == 0 and tsellim.taper_closed_form_holds(lim, budget)
+    if name == "vmap":
+        got = torch.func.vmap(tsellim.sellim_taper)(lim, budget)
+        shared = torch.func.vmap(tsellim.sellim_taper,
+                                 in_dims=(0, None))(lim, budget[0])
+        for i in range(len(lim)):
+            assert _same_bits(got[i], _taper_model(lim[i].numpy(),
+                                                   budget[i].numpy())[0])
+            assert _same_bits(shared[i], _taper_model(
+                lim[i].numpy(), budget[0].numpy())[0])
+
+
+def _random_taper_case(rng) -> tuple[np.ndarray, np.ndarray]:
+    """Segments of widths 1-40 with gaps of 0-200 bins; gains mostly in
+    (0, 1], sometimes NaN, 0, +inf, negative or above 1; weak bins now and
+    then with budget >= 1 or a fractional budget under 1."""
+    n = int(rng.choice([512, 1024, 2048, 2944]))
+    lim = np.zeros(n, np.float32)
+    bud = np.zeros(n, np.float32)
+    pos = int(rng.integers(0, 60))
+    while pos < n:
+        width = int(rng.integers(1, 41))
+        u = rng.random()
+        gain = (np.nan if u < 0.04 else 0.0 if u < 0.07 else np.inf
+                if u < 0.09 else -1.0 if u < 0.12 else 2.5 if u < 0.15
+                else rng.uniform(1e-3, 1.0))
+        lim[pos:pos + width] = gain
+        bud[pos:pos + width] = width / 4 + 1 if rng.random() < 0.9 \
+            else rng.uniform(0, 120)
+        pos += width + int(rng.integers(0, 201))
+    weak = np.nonzero(lim == 0)[0]
+    if rng.random() < 0.2:
+        hit = rng.choice(weak, size=3)
+        bud[hit] = rng.choice([1.0, 2.5, 70.0], size=3)
+    if rng.random() < 0.3:
+        hit = rng.choice(weak, size=5)
+        bud[hit] = rng.uniform(0, 1, 5)
+    return lim, bud
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_taper_model_random(seed):
+    """The model against the plain version, bit for bit, on 40 random
+    cases per seed; across the seeds both paths are taken."""
+    rng = np.random.default_rng(1000 + seed)
+    looped = closed = 0
+    for _ in range(40):
+        lim, bud = _random_taper_case(rng)
+        want = tsellim._sellim_taper_reference(_t(lim), _t(bud)).numpy()
+        got, paths = _taper_model(lim, bud)
+        assert _same_bits(got, want)
+        looped += sum(paths)
+        closed += len(paths) - sum(paths)
+    assert looped and closed
 
 
 # ---- what the wrappers refuse ----------------------------------------
