@@ -681,6 +681,34 @@ def taper_passes(lim: torch.Tensor, budget: torch.Tensor) -> int:
     return sl.TAPER_STEPS
 
 
+# A powf(., 0.9f) counted as FP32 operations: CUDA's powf is a logarithm,
+# a multiply and an exponential in extended precision, about 20 of them.
+POWF_OPS = 20
+
+
+def taper_ops(lim: torch.Tensor, budget: torch.Tensor) -> int:
+    """The operations sellim_taper needs on (lim, budget), as its closed
+    form does them: a dozen a bin (the nearest nonzero bin on each side,
+    the reach test, the pick), and for each source that lights (gain > 0,
+    budget >= 1) one chain of powf as long as the farther of its two
+    fronts reaches: at most 64 bins, at most its budget, and short of the
+    next nonzero bin or the band's end."""
+    n = lim.shape[-1]
+    lims = lim.reshape(-1, n).cpu().numpy()
+    budgets = np.broadcast_to(budget.cpu().numpy(), lim.shape).reshape(-1, n)
+    ops = 12 * lims.size
+    for lw, bw in zip(lims, budgets):
+        nz = np.flatnonzero(lw != 0)
+        gap_r = np.diff(np.append(nz, n))
+        gap_l = np.diff(np.insert(nz, 0, -1))
+        src = (lw[nz] > 0) & (bw[nz] >= 1)
+        by_budget = np.floor(np.minimum(bw[nz], 64.0))
+        chain = np.maximum(np.minimum(by_budget, gap_r - 1),
+                           np.minimum(by_budget, gap_l - 1))
+        ops += POWF_OPS * int(chain[src].sum())
+    return ops
+
+
 def taper_spectrum(n: int, seed: int) -> np.ndarray:
     """An averaged fft1 power spectrum: noise, a narrow strong carrier, a
     weaker one, and one about a ninetieth of the band wide, whose budget
@@ -1160,11 +1188,10 @@ def taper_case(dev: dict, label: str, lim: torch.Tensor,
                              f"reports its paths differs")
     looped = sum(map(sum, paths))
     tiles = sum(map(len, paths))
-    n = lim.shape[-1]
     rep = loop_case(dev, "sellim_taper",
                     f"{label} {tuple(lim.shape)}, passes run {passes}",
                     kernel, plain, compare_taper, 12 * lim.numel(),
-                    12 * n * sum(passes), floor, 20, plain_device, main)
+                    taper_ops(lim, budget), floor, 20, plain_device, main)
     rep["paths"] = {"closed form": tiles - looped, "window loop": looped}
     print(f"loops sellim_taper {label}: {tiles} tiles of {sl.TAPER_TILE} "
           f"bins, {tiles - looped} in closed form, {looped} by the window "

@@ -49,8 +49,9 @@
 //   and CR (from the right), so a chain is computed once per source, not
 //   once per bin.  Two block-wide barriers in all: after the loads (with
 //   the precondition's vote) and after the chains.  The longest chain,
-//   64 dependent powf, then bounds the call: about 0.17 us a powf on an
-//   H100 (chip_smoke.py phase 3b: 0.0033 ms at 3 deep, 0.0134 at 64).
+//   64 dependent powf, then bounds the call: about 0.14 us a powf on an
+//   H100 (chip_smoke.py phase 3b: 0.0029-0.0031 ms at 3 deep, 0.0117 at
+//   64).
 // - The window loop.  update_liminfo breaks the precondition where a
 //   strong segment's gain is 0, so that a bin with lim == 0 carries a
 //   budget >= 1: a +inf power bin (clamp(min=1e-30) keeps it, maxval is

@@ -13,10 +13,9 @@ As a script it times ``fused_fft1`` of this checkout, or of this
 checkout and another on the same card in turns (other, this, this,
 other), for comparing two versions of the kernel; with ``--step`` it
 times the graphed flagship step instead (``BatchRunner``, the replays
-alone), for comparing two versions of the step; with ``--taper`` it
-times ``sellim_taper`` on chip_smoke.py's taper cases:
+alone), for comparing two versions of the step:
 
-    python3 linrad_tpu_torch/utils/timing.py [--step | --taper] [--other DIR]
+    python3 linrad_tpu_torch/utils/timing.py [--step] [--other DIR]
 
 DIR holds another ``linrad_tpu_torch`` package; each checkout is loaded
 in a process of its own, since both packages have the same name.  Every
@@ -211,57 +210,6 @@ def _time_step(root: str) -> None:
           flush=True)
 
 
-def _time_taper(root: str) -> None:
-    """Time sellim_taper of the package under root on the cases of
-    chip_smoke.py's phase 3b that every version of it has: the flagship's
-    recorded arguments, carriers at each preset's fft1 size, two and four
-    QRSS bands side by side, and 8 flagship streams under vmap; one line
-    per case, device_ms from graph replays and eager ms, two of each."""
-    import subprocess
-    import sys
-    sys.path.insert(0, root)
-    import chip_smoke as cs
-    from linrad_tpu_torch import (RxMode, derive_geometry, flagship_params,
-                                  preset)
-    from linrad_tpu_torch.ops import sellim as sl
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    p = flagship_params(fft1_variant="pallas")
-    steps = cs.LOOP_STREAMS + 1
-    tapers = cs.loop_args(p, cs.make_input(derive_geometry(p), seed=6,
-                                           steps=steps), cs.TUNE_HZ,
-                          steps)[1]
-    cases = {"flagship": tapers[1][:2]}
-    for mode in cs.TAPER_MODES:
-        pt = flagship_params() if mode is None else preset(RxMode[mode])
-        gt = derive_geometry(pt)
-        n = gt.fft1_size
-        spec = torch.from_numpy(cs.taper_spectrum(n, n)).cuda()
-        args = cs.record_calls(sl, "sellim_taper", lambda: sl.update_liminfo(
-            gt, sl.SellimState.create(gt, "cuda"), spec, 8.0, ston=30.0))
-        cases[f"{mode or 'flagship'} carriers"] = args[0][:2]
-    for k in (2, 4):
-        cases[f"{k} QRSS bands"] = tuple(
-            torch.cat([x] * k) for x in cases["QRSS carriers"])
-    cases[f"vmap R={cs.LOOP_STREAMS}"] = tuple(
-        torch.stack([t[i] for t in tapers[1:]]) for i in (0, 1))
-    for name, (lim, budget) in cases.items():
-        if lim.dim() == 2:
-            fn = lambda lim=lim, budget=budget: torch.func.vmap(
-                sl.sellim_taper)(lim, budget)
-        else:
-            fn = lambda lim=lim, budget=budget: sl.sellim_taper(lim, budget)
-        for _ in range(3):
-            fn()
-        eager = [cuda_ms(fn, 20) for _ in range(2)]
-        device = [graph_ms(fn, 20, 5) for _ in range(2)]
-        print(f"{root}: sellim_taper {name} {tuple(lim.shape)}: device_ms "
-              f"{min(device):.5f}-{max(device):.5f}, eager ms "
-              f"{min(eager):.4f}-{max(eager):.4f} [{smi}]", flush=True)
-
-
 def main() -> None:
     import argparse
     import subprocess
@@ -271,20 +219,18 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[1])
     ap.add_argument("--other", default=None)
     ap.add_argument("--step", action="store_true")
-    ap.add_argument("--taper", action="store_true")
     ap.add_argument("--one", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
-        (_time_step if args.step else _time_taper if args.taper
-         else _time_checkout)(args.one)
+        (_time_step if args.step else _time_checkout)(args.one)
         return
     if not torch.cuda.is_available():
         raise SystemExit("timing: torch.cuda.is_available() is False")
     roots = [here] if args.other is None else [
         args.other, here, here, args.other]
-    what = ["--step"] if args.step else ["--taper"] if args.taper else []
+    step = ["--step"] if args.step else []
     for root in roots:
-        subprocess.run([sys.executable, __file__, *what, "--one", root],
+        subprocess.run([sys.executable, __file__, *step, "--one", root],
                        check=True)
 
 
