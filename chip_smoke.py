@@ -6,8 +6,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device   require CUDA, print the card, its power limit, the torch and
             CUDA versions; turn TF32 off for matmul and cuDNN.
-2. build    build the three kernels of linrad_tpu_torch/csrc/ (the fused
-            fft1, the blanker's fits, sellim's taper) with nvcc (sm_90a),
+2. build    build the four kernels of linrad_tpu_torch/csrc/ (the fused
+            fft1, the blanker's fits, sellim's taper, the stupid blanker)
+            with nvcc (sm_90a),
             one nvcc each, all at once, and print the build seconds and
             what ptxas says of registers and spills.
 3. kernel   fused_fft1 (kernel) against fused_fft1_reference (plain
@@ -25,9 +26,8 @@ Phases, in order; any failure raises and the script exits non-zero:
             the same way (library_ms: the transform without window,
             calibration or power; a yardstick the port never calls) and
             one empty kernel launch (launch_floor_ms).
-3b. loops  the two device loops of the main path, each one launch of a
-            hand-written kernel, against their plain PyTorch versions on
-            the card: blanker_fits (the blocked clever blanker's fits) on
+3b. loops  the main path's hand-written loop kernels against their
+            plain PyTorch versions on the card: blanker_fits (the blocked clever blanker's fits) on
             the arguments the pipeline hands it in eager steps of the
             flagship (65,536 samples, up to 64 fits), the EME path (two
             channels) and WCW (262,144 samples, 16 fits), under
@@ -53,7 +53,17 @@ Phases, in order; any failure raises and the script exits non-zero:
             NaNs where the plain version has them, signs exact, gains
             within 1e-6; per case the tiles' paths (closed form or window
             loop) as the kernel reports them, held to the precondition,
-            and the kernel's tile size and ptxas lines.  Two runs
+            and the kernel's tile size and ptxas lines;
+            blanker_clear (the stupid blanker, two launches a call) on the
+            arguments of eager flagship (65,536 x 1) and EME (131,072 x 2)
+            steps, on twelve crafted cases (CLEAR_EDGE_CASES: nothing
+            flagged, everything flagged, runs longer than two tiles, runs
+            on the stream's ends and across tile edges, maxima at 4 floors
+            and at the clamp, +inf and NaN power, a ragged S, three
+            channels, pw 30, a floor of 0) and under vmap over 8 flagship
+            streams and over 8 crafted ones, each with its own floor:
+            weak', pwr' and the count bit-equal to the plain version's, the
+            vmap call bit-equal to separate calls; its ptxas lines.  Two runs
             bit-identical, a replay from a CUDA graph bit-equal to the
             eager call.  Per case
             device_ms (graph replay), eager ms, the launch floor, bound_ms
@@ -583,7 +593,8 @@ def phase_kernel(dev: dict) -> dict:
 
 # The two device loops of the main path and the JAX loops they replace
 LOOP_KERNELS = (("blanker_fits", "linrad_tpu/ops/blanker.py:322"),
-                ("sellim_taper", "linrad_tpu/ops/sellim.py:150"))
+                ("sellim_taper", "linrad_tpu/ops/sellim.py:150"),
+                ("blanker_clear", "linrad_tpu/ops/blanker.py:449"))
 LOOP_FITS_TOL = 1e-5     # weak and pwr against the plain version: max_rel
 LOOP_TAPER_TOL = 1e-6    # the tapered gains: max_rel; the signs exact
 # The chain through the loop kernels against the same with their plain
@@ -605,7 +616,8 @@ def loop_counts() -> dict:
     """The loop kernels' launch counts by name."""
     from linrad_tpu_torch.ops import blanker as bl
     from linrad_tpu_torch.ops import sellim as sl
-    return {"blanker_fits": bl.fits_count, "sellim_taper": sl.taper_count}
+    return {"blanker_fits": bl.fits_count, "sellim_taper": sl.taper_count,
+            "blanker_clear": bl.clear_count}
 
 
 def record_calls(module, name: str, run) -> list:
@@ -632,33 +644,37 @@ def with_loop_references(run, fits=None):
     stage functions), or the fits by ``fits`` where given."""
     from linrad_tpu_torch.ops import blanker as bl
     from linrad_tpu_torch.ops import sellim as sl
-    saved = bl.blanker_fits, sl.sellim_taper
+    saved = bl.blanker_fits, sl.sellim_taper, bl.blanker_clear
     bl.blanker_fits = fits or bl._blanker_fits_reference
     sl.sellim_taper = sl._sellim_taper_reference
+    bl.blanker_clear = bl._blanker_clear_reference
     try:
         return run()
     finally:
-        bl.blanker_fits, sl.sellim_taper = saved
+        bl.blanker_fits, sl.sellim_taper, bl.blanker_clear = saved
 
 
 def loop_args(p, iq: np.ndarray, tune_hz: float, steps: int,
               device="cuda") -> tuple:
-    """The arguments of blanker_fits and of sellim_taper in each of
-    ``steps`` eager steps of a Receiver of p on the card."""
+    """The arguments of blanker_fits, of sellim_taper and of blanker_clear
+    in each of ``steps`` eager steps of a Receiver of p on the card."""
     from linrad_tpu_torch.ops import blanker as bl
     from linrad_tpu_torch.ops import sellim as sl
     from linrad_tpu_torch.pipeline.receiver import Receiver
     rx = Receiver(p, device=device, graphed=False)
     rx.tune(tune_hz)
     s = rx.geo.samples_per_step
-    taper = []
+    taper, clear = [], []
 
     def run():
-        taper.extend(record_calls(sl, "sellim_taper", lambda: [
+        clear.extend(record_calls(bl, "blanker_clear", lambda: [
             rx.process_block(iq[i * s:(i + 1) * s]) for i in range(steps)]))
 
-    fits = record_calls(bl, "blanker_fits", run)
-    return fits, taper
+    def run_taper():
+        taper.extend(record_calls(sl, "sellim_taper", run))
+
+    fits = record_calls(bl, "blanker_fits", run_taper)
+    return fits, taper, clear
 
 
 def valid_fits(args: tuple) -> int:
@@ -1270,6 +1286,233 @@ def phase_taper(dev: dict, floor: float | None = None,
     return taper_rep
 
 
+# Crafted streams for blanker_clear (the stupid blanker), held against the
+# plain version here on the card and, through a numpy model of the
+# kernel's tiles, on the CPU (tests/test_torch_blanker_clear.py): noise at
+# the floor with runs of 1-8 samples 20 to 1e5 floors high, and per case
+# nothing flagged, everything flagged (one run over the whole stream),
+# runs longer than two tiles, runs on the stream's first and last sample,
+# runs and reaches across tile edges, runs whose maximum is exactly 4
+# floors (widen off) and the next float above (on), maxima at and above
+# the clamp (t = 1), a +inf and a NaN power, S not a multiple of the tile,
+# three channels, the widest pulse the presets' banks give (pw 30: halos
+# of 15 and 31), and a floor of 0 over a stream of zeros.
+CLEAR_EDGE_CASES = ("quiet", "all-flagged", "long-run", "stream-ends",
+                    "tile-edges", "at-4nf", "clamp", "inf", "ragged",
+                    "three-channels", "wide-pulse", "zero-floor")
+# eight of them at one limit and width, as a fleet's streams under vmap,
+# each with its own floor
+CLEAR_VMAP_CASES = ("quiet", "all-flagged", "long-run", "stream-ends",
+                    "tile-edges", "clamp", "inf", "zero-floor")
+CLEAR_EDGE_S = 4_096     # 8 tiles of the kernel's 512
+CLEAR_NF = 100.0
+CLEAR_LIMIT = 4.0        # the flagship's stupid_bln_limit
+CLEAR_PW = 2             # the width of a flat response at fft1 2,048
+
+
+def clear_edge_case(name: str) -> tuple:
+    """(weak (S, C) complex64, pwr (S,) float32, noise floor, limit_amp,
+    pw) of one crafted case."""
+    rng = np.random.default_rng(100 + CLEAR_EDGE_CASES.index(name))
+    s = CLEAR_EDGE_S + (37 if name == "ragged" else 0)
+    c = 3 if name == "three-channels" else 1
+    nf = 0.0 if name == "zero-floor" else CLEAR_NF
+    limit = 1.5 if name == "at-4nf" else CLEAR_LIMIT
+    pw = 30 if name == "wide-pulse" else CLEAR_PW
+    amp = np.sqrt(CLEAR_NF / (2 * c))
+    x = amp * (rng.normal(size=(s, c)) + 1j * rng.normal(size=(s, c)))
+    if name == "zero-floor":
+        x[:] = 0.0
+    if name == "all-flagged":
+        x *= 0.05
+        x += np.sqrt(30 * CLEAR_NF / c) * np.exp(
+            2j * np.pi * rng.random((s, c)))
+
+    def run(lo: int, n: int, peak: float) -> None:
+        """n samples from lo, peak floors high in the middle."""
+        lo = max(lo, 0)
+        n = min(n, s - lo)
+        level = peak * np.minimum(1.0, 0.2 + np.arange(n) / max(n, 1)
+                                  + 0.5 * (np.arange(n) == n // 2))
+        x[lo:lo + n] = np.sqrt(level * CLEAR_NF / c)[:, None] * np.exp(
+            2j * np.pi * rng.random((n, c)))
+
+    if name not in ("quiet", "all-flagged"):
+        for _ in range(12):
+            run(int(rng.integers(0, s - 8)), int(rng.integers(1, 9)),
+                float(10 ** rng.uniform(1.3, 5)))
+    if name == "long-run":
+        # runs over tiles 1 to 4 and 5 to 7 whose maxima (t = 1) lie two
+        # tiles from their ends, which they widen
+        run(700, 1400, 300.0)
+        run(1900, 1, 1e5)
+        run(3000, 600, 50.0)
+        run(3010, 1, 1e5)
+    elif name == "stream-ends":
+        run(0, 3, 1e4)
+        run(s - 2, 2, 1e5)
+    elif name in ("tile-edges", "wide-pulse"):
+        run(505, 7, 2e3)                # ends on 511
+        run(512, 3, 5e3)                # starts on 512
+        run(1023, 1, 1e5)
+        run(1025, 1, 1e5)
+        run(1535, 2, 900.0)
+        run(2048, 512, 40.0)            # exactly one tile
+        run(3583, 2, 1e4)
+    weak = x.astype(np.complex64)
+    pwr = (np.abs(weak) ** 2).sum(1).astype(np.float32)
+    nf32 = np.float32(nf)
+    if name == "at-4nf":
+        for lo, peak in ((400, 4 * nf32), (900, np.nextafter(4 * nf32,
+                                                             np.inf)),
+                         (1400, 4 * nf32), (2600, np.nextafter(4 * nf32,
+                                                               np.inf))):
+            pwr[lo:lo + 5] = np.float32(3 * nf32)
+            pwr[lo + 2] = peak
+    elif name == "clamp":
+        for lo, peak in ((300, 1e4), (800, np.nextafter(np.float32(1e4),
+                                                        np.float32(0))),
+                         (1300, np.nextafter(np.float32(1e4), np.inf)),
+                         (1800, 1e6), (2300, 3e36)):
+            pwr[lo:lo + 3] = np.float32(peak) * nf32
+    elif name == "inf":
+        pwr[1000:1004] = np.float32(50 * nf32)
+        pwr[1002] = np.inf
+        pwr[2000] = np.nan
+        pwr[2001] = np.float32(1e3 * nf32)
+        pwr[3000] = np.nan
+    return weak, pwr, nf32, limit, pw
+
+
+def clear_edge_args(name: str, device="cuda") -> tuple:
+    """blanker_clear's arguments for one crafted case on ``device``."""
+    weak, pwr, nf, limit, pw = clear_edge_case(name)
+    return (torch.from_numpy(weak).to(device),
+            torch.from_numpy(pwr).to(device),
+            torch.tensor(nf, dtype=torch.float32, device=device), limit, pw)
+
+
+def clear_vmap_args(device="cuda") -> tuple:
+    """CLEAR_VMAP_CASES stacked as R streams, each with its own floor
+    (the first seven floors scaled by 1, 1.1, ...): (weak (R, S, 1), pwr
+    (R, S), floors (R,), limit_amp, pw)."""
+    cases = [clear_edge_args(n, device) for n in CLEAR_VMAP_CASES]
+    floors = torch.stack([a[2] * (1 + 0.1 * i) if a[2] > 0 else a[2]
+                          for i, a in enumerate(cases)])
+    return (torch.stack([a[0] for a in cases]),
+            torch.stack([a[1] for a in cases]), floors, CLEAR_LIMIT,
+            CLEAR_PW)
+
+
+def clear_bytes(weak: torch.Tensor) -> int:
+    """What blanker_clear must move: weak and pwr read and written once,
+    the floor read and the count written, per stream."""
+    s, c = weak.shape[-2:]
+    r = weak.numel() // (s * c)
+    return r * (16 * s * c + 8 * s + 8)
+
+
+def compare_clear(got, want) -> tuple[float, str]:
+    """The kernel's (weak', pwr', count) against the plain version's: the
+    same bits, or it raises."""
+    names = ("weak", "pwr", "count")
+    for n, a, b in zip(names, got, want):
+        if not same_bits(a, b):
+            raise AssertionError(f"blanker_clear: {n} differs from the "
+                                 f"plain version's bits")
+    return 0.0, (f"weak, pwr and count {got[2].tolist()} bit-equal to the "
+                 f"plain version")
+
+
+def clear_case(dev: dict, label: str, args: tuple, floor: float,
+               plain_device: bool = True, main: bool = False) -> dict:
+    """blanker_clear on (weak, pwr, floor, limit_amp, pw) of one stream
+    or, stacked, of R streams under torch.func.vmap (each its own floor):
+    bit for bit against its plain version, timed beside it."""
+    from linrad_tpu_torch.ops import blanker as bl
+    weak, pwr, nf, limit, pw = args
+    before = [x.clone() for x in (weak, pwr, nf)]
+    if weak.dim() == 3:
+        kernel = lambda: torch.func.vmap(
+            bl.blanker_clear, in_dims=(0, 0, 0, None, None))(
+                weak, pwr, nf, limit, pw)
+        plain = lambda: tuple(torch.stack(v) for v in zip(*(
+            bl._blanker_clear_reference(weak[i], pwr[i], nf[i], limit, pw)
+            for i in range(len(weak)))))
+        calls = bl.clear_count.launches
+        got = kernel()
+        if bl.clear_count.launches != calls + 1:
+            raise AssertionError("blanker_clear under vmap: expected one "
+                                 "call")
+        each = [bl.blanker_clear(weak[i], pwr[i], nf[i], limit, pw)
+                for i in range(len(weak))]
+        if not all(same_bits(torch.stack(v), g)
+                   for v, g in zip(zip(*each), got)):
+            raise AssertionError("blanker_clear under vmap differs from "
+                                 "separate calls")
+    else:
+        kernel = lambda: bl.blanker_clear(weak, pwr, nf, limit, pw)
+        plain = lambda: bl._blanker_clear_reference(weak, pwr, nf, limit,
+                                                    pw)
+    rep = loop_case(dev, "blanker_clear",
+                    f"{label} {tuple(weak.shape)}, pw {pw}, limit {limit}",
+                    kernel, plain, compare_clear, clear_bytes(weak), 0,
+                    floor, 20, plain_device, main)
+    if not all(same_bits(a, b) for a, b in zip((weak, pwr, nf), before)):
+        raise AssertionError("blanker_clear changed an argument")
+    return rep
+
+
+def phase_clear(dev: dict, floor: float | None = None,
+                clears: list | None = None) -> dict:
+    """blanker_clear's cases of phase 3b: the arguments recorded from
+    eager flagship steps (made here where not given) and EME steps, the
+    crafted cases, and vmap over 8 flagship streams and over the crafted
+    streams, each stream with its own floor."""
+    from linrad_tpu_torch import derive_geometry, flagship_params
+    from linrad_tpu_torch.ops import blanker as bl
+    from linrad_tpu_torch.ops import fused_fft1 as ff
+    from linrad_tpu_torch.utils import cuda_build
+    from linrad_tpu_torch.utils.timing import graph_ms
+    t0 = time.perf_counter()
+    print(f"loops blanker_clear: tiles of {bl.CLEAR_TILE} samples, halos "
+          f"of clear_reach(pw) = {bl.clear_reach(CLEAR_PW)} at pw "
+          f"{CLEAR_PW}, two launches a call")
+    for line in cuda_build.build("blanker_clear")[1]["log"].splitlines():
+        if any(w in line for w in ("entry function", "registers", "spill",
+                                   "smem")):
+            print(f"loops blanker_clear ptxas: {line.strip()}")
+    if floor is None:
+        cuda = torch.device("cuda", torch.cuda.current_device())
+        floor = graph_ms(lambda: ff.empty_launch(cuda), 50, 20)
+    if clears is None:
+        p = flagship_params(fft1_variant="pallas")
+        steps = LOOP_STREAMS + 1
+        clears = loop_args(p, make_input(derive_geometry(p), seed=6,
+                                         steps=steps), TUNE_HZ, steps)[2]
+    rep = {"flagship": clear_case(dev, "flagship", clears[1], floor,
+                                  main=True)}
+    pe = eme_params("pallas")
+    eme = loop_args(pe, make_eme_input(derive_geometry(pe), 3),
+                    EME_TUNE_HZ, 3)[2]
+    rep["eme"] = clear_case(dev, "EME", eme[-1], floor)
+    for name in CLEAR_EDGE_CASES:
+        rep[f"edge {name}"] = clear_case(dev, f"edge {name}",
+                                         clear_edge_args(name), floor,
+                                         plain_device=False)
+    rep["edge vmap"] = clear_case(dev, f"edge vmap R={len(CLEAR_VMAP_CASES)}",
+                                  clear_vmap_args(), floor,
+                                  plain_device=False)
+    streams = clears[1:LOOP_STREAMS + 1]
+    rep["vmap"] = clear_case(dev, f"vmap R={LOOP_STREAMS}", (
+        torch.stack([a[0] for a in streams]),
+        torch.stack([a[1] for a in streams]),
+        torch.stack([a[2] for a in streams]), *streams[0][3:]), floor)
+    print(f"loops blanker_clear: {len(rep)} cases in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return rep
+
+
 def phase_loop_kernels(dev: dict) -> dict:
     """Phase 3b.  Returns, per loop kernel, its report at the main path's
     shape (the flagship's) and at every other shape."""
@@ -1288,19 +1531,20 @@ def phase_loop_kernels(dev: dict) -> dict:
     p = flagship_params(fft1_variant="pallas")
     geo = derive_geometry(p)
     steps = LOOP_STREAMS + 1
-    fits, tapers = loop_args(p, make_input(geo, seed=6, steps=steps),
-                             TUNE_HZ, steps)
+    fits, tapers, clears = loop_args(p, make_input(geo, seed=6,
+                                                   steps=steps),
+                                     TUNE_HZ, steps)
     fits_rep = {"flagship": fits_case(dev, "flagship", fits[1], floor,
                                       main=True)}
     pe = eme_params("pallas")
     ge = derive_geometry(pe)
-    eme_fits, _ = loop_args(pe, make_eme_input(ge, 3), EME_TUNE_HZ, 3)
+    eme_fits = loop_args(pe, make_eme_input(ge, 3), EME_TUNE_HZ, 3)[0]
     fits_rep["eme"] = fits_case(dev, "EME", eme_fits[-1], floor)
     pw_ = preset(RxMode.WCW)
     gw = derive_geometry(pw_)
-    wcw_fits, _ = loop_args(pw_, mode_input(RxMode.WCW, gw, 2,
-                                            PRESET_DIAL_HZ),
-                            PRESET_DIAL_HZ, 2)
+    wcw_fits = loop_args(pw_, mode_input(RxMode.WCW, gw, 2,
+                                         PRESET_DIAL_HZ),
+                         PRESET_DIAL_HZ, 2)[0]
     fits_rep["wcw"] = fits_case(dev, "WCW", wcw_fits[-1], floor)
     fits_rep["vmap"] = fits_vmap_case(dev, fits[1:], floor)
     # a time shard's halos: no candidate centre there
@@ -1329,11 +1573,13 @@ def phase_loop_kernels(dev: dict) -> dict:
                              f"L2 and the wider sub-blocks: {plans}")
 
     taper_rep = phase_taper(dev, floor, tapers)
+    clear_rep = phase_clear(dev, floor, clears)
     print(f"loops: kernels against their plain versions in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     phase_loop_chain(dev)
     print(f"loops: phase 3b in {time.perf_counter() - t0:.1f} s", flush=True)
-    return {"blanker_fits": fits_rep, "sellim_taper": taper_rep}
+    return {"blanker_fits": fits_rep, "sellim_taper": taper_rep,
+            "blanker_clear": clear_rep}
 
 
 def compare_batches(got: dict, ref: dict, geo, label: str) -> None:

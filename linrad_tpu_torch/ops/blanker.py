@@ -6,7 +6,9 @@ Clever blanker: fit-and-subtract the strongest candidate pulse against a
 bank of fractionally shifted reference pulses (blank1.c:36-232), up to
 ``max_pulses`` times in sequence.  Stupid blanker: hard-clear every run
 above threshold, widened by the sqrt(peak/noise)/100 rule
-(blank1.c:1013-1083).
+(blank1.c:1013-1083); on a CUDA tensor :func:`blanker_clear` runs it as
+two launches of the hand-written kernel in ``csrc/blanker_clear.cu``, on a
+CPU tensor as its plain version :func:`_blanker_clear_reference`.
 
 The blocked search's fit loop (the flagship's, and every preset's) is
 :func:`blanker_fits`: on a CUDA tensor one launch of the hand-written
@@ -581,15 +583,44 @@ def stupid_blanker(weak: torch.Tensor, pwr: torch.Tensor,
                    noise_floor: torch.Tensor, limit_amp: float,
                    pulsewidth: int):
     """Hard-clear every run above threshold, widened by the
-    sqrt(peak/noise)/100 rule (blank1.c:1013-1083).
+    sqrt(peak/noise)/100 rule (blank1.c:1013-1083): :func:`blanker_clear`.
 
     Returns (weak', pwr', cleared_count (0-dim int32))."""
+    return blanker_clear(weak, pwr, noise_floor, float(limit_amp),
+                         pulsewidth)
+
+
+# ---- the stupid blanker: the kernel's wrapper and its plain version -----
+
+CLEAR_TILE = 512        # the kernel's kTile: the samples a block writes
+CLEAR_MAX_PW = 255      # the widest pulse whose reaches a tile's halos hold
+CLEAR_CLAMP = 1e4       # the clamp of runmax / noise floor
+CLEAR_MAX_S = 1 << 24   # float32 holds every position below it exactly
+# launches of csrc/blanker_clear.cu, made and recorded into CUDA graphs
+clear_count = cuda_build.LaunchCount()
+trace.count_launches("blanker_clear", clear_count)
+
+
+def clear_reach(pw: int) -> tuple[int, int]:
+    """The most samples a widened sample clears before and after itself:
+    its before and after are k t + 0.5 and (pw + 1) t + 0.5 with k = (pw +
+    1) // 2, and t = sqrt(clamp(., 0, CLEAR_CLAMP)) / 100 is at most 1."""
+    t_max = float(np.sqrt(np.float32(CLEAR_CLAMP))) / 100.0
+    return int((pw + 1) // 2 * t_max), int((pw + 1) * t_max)
+
+
+def _blanker_clear_reference(weak: torch.Tensor, pwr: torch.Tensor,
+                             noise_floor: torch.Tensor, limit_amp: float,
+                             pulsewidth: int):
+    """Plain PyTorch version of :func:`blanker_clear`: the run maxima by
+    a segmented scatter, the widening by a suffix minimum and a prefix
+    maximum over the whole stream."""
     s = pwr.shape[0]
     thr = _threshold(limit_amp, noise_floor)
     flagged = pwr > thr
     runmax = segment_max(pwr, flagged)
     t = torch.sqrt(torch.clamp(runmax / torch.clamp(noise_floor, min=1e-20),
-                               0.0, 1e4)) / 100.0
+                               0.0, CLEAR_CLAMP)) / 100.0
     widen = flagged & (runmax > 4.0 * noise_floor)
     before = torch.where(widen, ((pulsewidth + 1) // 2) * t + 0.5, 0.0)
     after = torch.where(widen, (pulsewidth + 1) * t + 0.5, 0.0)
@@ -602,6 +633,148 @@ def stupid_blanker(weak: torch.Tensor, pwr: torch.Tensor,
     weak2 = torch.where(cleared[:, None], 0.0, weak)
     pwr2 = torch.where(cleared, 0.0, pwr)
     return weak2, pwr2, cleared.sum().to(torch.int32)
+
+
+def _check_clear(weak: torch.Tensor, pwr: torch.Tensor,
+                 noise_floor: torch.Tensor, pw: int) -> None:
+    """Refuse what :func:`blanker_clear` does not take: weak (S, C)
+    complex64 with 1 <= S < CLEAR_MAX_S and C >= 1; pwr (S,) float32;
+    noise_floor a 0-dim float32; 0 <= pw <= CLEAR_MAX_PW; one device.  A
+    stream that is not dense is copied to one that is before a launch."""
+    if weak.dim() != 2 or weak.dtype != torch.complex64 \
+            or not 1 <= weak.shape[0] < CLEAR_MAX_S or weak.shape[1] < 1:
+        raise ValueError(f"blanker_clear: weak must be (S, C) complex64 "
+                         f"with 1 <= S < {CLEAR_MAX_S} and C >= 1, got "
+                         f"{tuple(weak.shape)} {weak.dtype}")
+    s = weak.shape[0]
+    if pwr.dtype != torch.float32 or tuple(pwr.shape) != (s,):
+        raise ValueError(f"blanker_clear: pwr must be ({s},) float32, got "
+                         f"{tuple(pwr.shape)} {pwr.dtype}")
+    if noise_floor.dtype != torch.float32 or noise_floor.dim() != 0:
+        raise ValueError("blanker_clear: noise_floor must be a 0-dim "
+                         "float32 tensor")
+    if not 0 <= pw <= CLEAR_MAX_PW:
+        raise ValueError(f"blanker_clear: pulse width {pw} outside 0.."
+                         f"{CLEAR_MAX_PW}")
+    devices = {x.device for x in (weak, pwr, noise_floor)}
+    if len(devices) != 1:
+        raise ValueError(f"blanker_clear: tensors on different devices "
+                         f"{sorted(map(str, devices))}")
+    # meta: the fake tensors of a trace, which reach only the fake
+    if weak.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"blanker_clear: unsupported device {weak.device}")
+
+
+@functools.lru_cache(maxsize=1)
+def _clear_fn():
+    """The C launcher of csrc/blanker_clear.cu, built at first use."""
+    lib, _info = cuda_build.build("blanker_clear")
+    for name, want in (("lrt_blanker_clear_tile", CLEAR_TILE),
+                       ("lrt_blanker_clear_max_pw", CLEAR_MAX_PW)):
+        fn = getattr(lib, name)
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+        if fn() != want:
+            raise RuntimeError(f"blanker_clear: the kernel's {name} is "
+                               f"{fn()}, the wrapper's {want}")
+    fn = lib.lrt_blanker_clear
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 3
+                   + [ctypes.c_float] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _dense_streams(x: torch.Tensor) -> torch.Tensor:
+    """x (R, ...) with each stream dense, as the kernel reads it (streams
+    any stride apart, 0 where one serves all)."""
+    return x if x[0].is_contiguous() else x.contiguous()
+
+
+def _clear_launch(weak: torch.Tensor, pwr: torch.Tensor,
+                  noise_floor: torch.Tensor, limit_amp: float, pw: int):
+    """One call for R streams: weak (R, S, C), pwr (R, S), noise_floor
+    (R,) or one () for all.  The C function launches the run kernel and
+    the stencil kernel.  Returns (weak (R, S, C), pwr (R, S), count
+    (R,))."""
+    dev = weak.device
+    r, s, c = weak.shape
+    weak, pwr = _dense_streams(weak), _dense_streams(pwr)
+    tiles = -(-s // CLEAR_TILE)
+    wout = torch.empty((r, s, c), dtype=torch.complex64, device=dev)
+    pout = torch.empty((r, s), dtype=torch.float32, device=dev)
+    count = torch.empty(r, dtype=torch.int32, device=dev)
+    local = torch.empty((r, s), dtype=torch.float32, device=dev)
+    summ = torch.empty((r, tiles, 4), dtype=torch.int32, device=dev)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    cuda_build.launch(_clear_fn(), (
+        weak.data_ptr(), pwr.data_ptr(), noise_floor.data_ptr(),
+        wout.data_ptr(), pout.data_ptr(), count.data_ptr(), local.data_ptr(),
+        summ.data_ptr(), weak.stride(0), pwr.stride(0),
+        noise_floor.stride(0) if noise_floor.dim() else 0,
+        _f32(limit_amp * limit_amp), s, c, pw, r, stream), dev,
+        f"blanker_clear at ({r}, {s}, {c})")
+    clear_count.add()
+    return wout, pout, count
+
+
+@torch.library.custom_op("linrad_tpu_torch::blanker_clear", mutates_args=())
+def blanker_clear(weak: torch.Tensor, pwr: torch.Tensor,
+                  noise_floor: torch.Tensor, limit_amp: float,
+                  pw: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The stupid blanker (blank1.c:1013-1083).
+
+    weak (S, C) complex64 and its channel-summed power pwr (S,) float32;
+    noise_floor: the 0-dim float32 floor on the device; a sample is
+    flagged where its power is over noise_floor * limit_amp^2, and a run
+    of flagged samples whose maximum is over 4 noise floors is widened by
+    (pw + 1) // 2 and pw + 1 times sqrt(clamp(max / floor, 0, 1e4)) / 100,
+    plus half a sample, on its two sides.  Returns (weak', pwr' with every
+    flagged or widened sample cleared to 0, the cleared count (0-dim
+    int32)).  No argument is changed.
+
+    On a CUDA tensor two launches of ``csrc/blanker_clear.cu`` (the run
+    maxima of tiles, then the widening as a stencil of
+    :func:`clear_reach`'s halos), bit for bit the plain version's outputs
+    on the card; on a CPU tensor the plain version
+    :func:`_blanker_clear_reference`.  A PyTorch custom operator
+    (``torch.ops.linrad_tpu_torch.blanker_clear``) with a rule for
+    ``torch.func.vmap``: R streams make one call (:func:`_blanker_clear_vmap`).
+    Its calls are counted in ``clear_count``."""
+    _check_clear(weak, pwr, noise_floor, pw)
+    if weak.device.type == "cpu":
+        return _blanker_clear_reference(weak, pwr, noise_floor, limit_amp,
+                                        pw)
+    w, p, n = _clear_launch(weak[None], pwr[None], noise_floor, limit_amp,
+                            pw)
+    return w[0], p[0], n[0]
+
+
+@blanker_clear.register_fake
+def _blanker_clear_fake(weak, pwr, noise_floor, limit_amp, pw):
+    _check_clear(weak, pwr, noise_floor, pw)
+    return (weak.new_empty(weak.shape), pwr.new_empty(pwr.shape),
+            pwr.new_empty((), dtype=torch.int32))
+
+
+@blanker_clear.register_vmap
+def _blanker_clear_vmap(info, in_dims, weak, pwr, noise_floor, limit_amp,
+                        pw):
+    """R streams, each with its noise floor or one shared: on the card one
+    call; on the CPU the plain version once per stream."""
+    r = info.batch_size
+    weak, pwr = (x.movedim(d, 0) if d is not None
+                 else x.expand((r,) + tuple(x.shape))
+                 for x, d in zip((weak, pwr), in_dims[:2]))
+    nf_dim = in_dims[2]
+    nf = noise_floor if nf_dim is None else noise_floor.movedim(nf_dim, 0)
+    floors = [nf] * r if nf_dim is None else list(nf)
+    _check_clear(weak[0], pwr[0], floors[0], pw)
+    if weak.device.type == "cpu":
+        outs = [_blanker_clear_reference(weak[i], pwr[i], floors[i],
+                                         limit_amp, pw) for i in range(r)]
+        return tuple(torch.stack(v) for v in zip(*outs)), (0, 0, 0)
+    return _clear_launch(weak, pwr, nf, limit_amp, pw), (0, 0, 0)
 
 
 def despiked_mean(pwr: torch.Tensor) -> torch.Tensor:

@@ -25,7 +25,9 @@ On the CPU each wrapper runs its plain version, so these tests hold:
   the precondition asserted on every call ``update_liminfo`` makes, and
   ``update_liminfo`` against JAX where it breaks the precondition (a
   +inf power bin, maxlevel 0);
-- what the wrappers refuse.
+- what the wrappers refuse, the stupid blanker's operator
+  (``ops/blanker.py:blanker_clear``, ``csrc/blanker_clear.cu``) among them,
+  whose numpy model is in ``tests/test_torch_blanker_clear.py``.
 
 The kernels themselves run on the card only: ``chip_smoke.py``'s loop
 kernel phase holds them against these plain versions there.
@@ -830,7 +832,38 @@ def test_blanker_fits_refuses(bad):
                          lead, s)
 
 
-@pytest.mark.parametrize("name", ["blanker_fits", "sellim_taper"])
+@pytest.mark.parametrize("bad", ["weak dtype", "no channels", "pwr shape",
+                                 "floor shape", "width", "negative width",
+                                 "device", "empty", "too long"])
+def test_blanker_clear_refuses(bad):
+    weak, pwr, nf, limit, pw = cs.clear_edge_args("tile-edges", CPU)
+    if bad == "weak dtype":
+        weak = weak.to(torch.complex128)
+    elif bad == "no channels":
+        weak = weak[:, :0]
+    elif bad == "pwr shape":
+        pwr = pwr[1:]
+    elif bad == "floor shape":
+        nf = nf.reshape(1)
+    elif bad == "width":
+        pw = tbl.CLEAR_MAX_PW + 1
+    elif bad == "negative width":
+        pw = -1
+    elif bad == "device":
+        nf = nf.to("meta")
+    elif bad == "empty":
+        weak, pwr = weak[:0], pwr[:0]
+    else:
+        weak = torch.empty((tbl.CLEAR_MAX_S, 1), dtype=torch.complex64,
+                           device="meta")
+        pwr = torch.empty(tbl.CLEAR_MAX_S, device="meta")
+        nf = nf.to("meta")
+    with pytest.raises(ValueError, match="blanker_clear"):
+        tbl.blanker_clear(weak, pwr, nf, limit, pw)
+
+
+@pytest.mark.parametrize("name", ["blanker_fits", "sellim_taper",
+                                  "blanker_clear"])
 def test_op_schema_and_fake(name):
     """Each custom operator passes torch.library.opcheck's schema and
     fake-tensor checks (the fake gives the shapes a trace sees, and
@@ -841,6 +874,9 @@ def test_op_schema_and_fake(name):
         args, lead = _fits_args(weak, pwr)
         op, args, count = tbl.blanker_fits, (*args, PW, 4, lead, S), \
             tbl.fits_count
+    elif name == "blanker_clear":
+        op, args, count = tbl.blanker_clear, cs.clear_edge_args(
+            "long-run", CPU), tbl.clear_count
     else:
         n = GEO.fft1_size
         spectrum = _carrier_spectrum(np.random.default_rng(n + 2), n, 0)
@@ -865,6 +901,10 @@ def test_build_without_nvcc(monkeypatch, tmp_path):
     try:
         with pytest.raises(RuntimeError, match="sellim_taper: nvcc not found"):
             cuda_build.build("sellim_taper")
+        with pytest.raises(RuntimeError,
+                           match="blanker_clear: nvcc not found"):
+            cuda_build.build("blanker_clear")
+        assert "blanker_clear" in cuda_build.KERNELS
         with pytest.raises(RuntimeError, match="nvcc not found"):
             cuda_build.build_all()
     finally:
