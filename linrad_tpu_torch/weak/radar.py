@@ -25,6 +25,21 @@ per-frame statistics, replayed from one CUDA graph per step
 960 small kernels.  ``_accumulate`` stays an eager multiply-add of a
 slice, two kernels a display update: a graph would replay the same, with
 ``start`` written to a device scalar before each replay.
+
+Each :meth:`RadarFront.feed` is a root span ``radar.block`` of the tracer
+(``utils/trace.py``) over ``radar.h2d`` (the block's copy in),
+``radar.replay`` (the graph's input copy and replay; ``radar.step`` for
+the eager step), ``radar.owned`` (the outputs' copies out of the graph's
+pool), ``radar.wait`` (on a CUDA device, a synchronise that takes the
+front's device work out of the tracker's read) and ``radar.track``
+(:meth:`RadarTracker.feed`).  Inside a tracker's feed: ``radar.read``
+(the power and statistics to the host), ``radar.lock`` (the lock's
+search) and ``radar.scan`` (the pulses' search in the pulse bin's column
+and the display updates, each with its window's copy to the device).  The
+tracer counts the bytes handed to the device (``h2d_bytes``: the block,
+the display updates' windows) and read back (``d2h_bytes``), and
+:func:`..utils.trace.report` reads the trackers' display updates as
+``radar_updates``.
 """
 
 from __future__ import annotations
@@ -39,6 +54,7 @@ from ..ops.fft1 import FFT1State, FFT1Tables, fft1_step
 from ..pipeline.batch import GraphedStep
 from ..pipeline.receiver import (_block_dtype, _block_rows, graph_wanted,
                                  resolve_device)
+from ..utils import trace
 from ..utils.host import to_numpy
 
 SPEED_OF_LIGHT = 299_792_458.0
@@ -193,20 +209,35 @@ class RadarFront:
         """(power (frames, bins), peak_bin, ston, noise_floor) of one block
         ((samples_per_step, C) complex64, a tensor or a numpy array), the
         caller's own tensors on the device."""
-        block = torch.as_tensor(block).to(device=self.device,
-                                          dtype=self._dtype)
-        block = block.reshape(self._shape)
+        with trace.span("radar.h2d", self.device):
+            block = torch.as_tensor(block)
+            host = block.device.type == "cpu"
+            block = block.to(device=self.device, dtype=self._dtype)
+            if host:
+                trace.add("h2d_bytes", block.numel() * block.element_size())
+            block = block.reshape(self._shape)
         if self.graph is None:
-            self._state, out = self._step(self._tables, self._state, block)
+            with trace.span("radar.step", self.device):
+                self._state, out = self._step(self._tables, self._state,
+                                              block)
             return out
-        return tuple(t.clone() for t in self.graph(block))
+        with trace.span("radar.replay"):
+            out = self.graph(block)
+        with trace.span("radar.owned", self.device):
+            return tuple(t.clone() for t in out)
 
     def feed(self, tracker: "RadarTracker", block) -> None:
-        power, *stats = self(block)
-        tracker.feed(power, stats=stats)
+        with trace.root("radar.block"):
+            power, *stats = self(block)
+            if self.device.type == "cuda":
+                # the tracker's read would wait here anyway
+                with trace.span("radar.wait"):
+                    torch.cuda.synchronize(self.device)
+            with trace.span("radar.track"):
+                tracker.feed(power, stats=stats)
 
 
-@dataclass
+@dataclass(eq=False)
 class RadarTracker:
     """The run_radar state machine (radar.c:121-520).
 
@@ -248,6 +279,7 @@ class RadarTracker:
         self._consumed = 0                     # frames dropped from front
         self._avg: torch.Tensor | None = None
         self._next_scan = 0                    # first unscanned frame
+        trace.watch("radar_updates", self, "update_cnt")
 
     # ------------------------------------------------------------------
     def feed(self, power_frames, stats=None) -> None:
@@ -258,27 +290,41 @@ class RadarTracker:
         numpy array to the tracker's device; the history keeps one host
         copy.  ``stats``: the spectra's ``(peak_bin, ston, noise_floor)``
         when the caller has them already (:meth:`RadarFront.feed`)."""
+        pw = None
         if isinstance(power_frames, torch.Tensor):
             dev = power_frames.detach().to(torch.float32)
             if dev.dim() == 3:                 # (frames, bins, channels)
                 dev = dev.sum(-1)
-            # the history's own copy: a CPU tensor's numpy view would
-            # follow the caller's later writes
-            pw = to_numpy(dev.clone() if dev.device.type == "cpu" else dev)
         else:
             pw = to_numpy(power_frames, np.float32)
             if pw.ndim == 3:
                 pw = pw.sum(axis=2)
             dev = torch.from_numpy(pw).to(self._device)
-        k, ston, floor = frame_pulse_stats(dev) if stats is None else stats
+            trace.add("h2d_bytes", pw.nbytes)
+        if stats is None:
+            stats = frame_pulse_stats(dev)
+        with trace.span("radar.read"):
+            if pw is None:
+                # the history's own copy (a CPU tensor's numpy view would
+                # follow the caller's later writes), page-locked when read
+                # from a card: the card writes it in place, where a
+                # pageable read goes through a staging buffer and a memcpy
+                pw = torch.empty(dev.shape, dtype=dev.dtype,
+                                 pin_memory=dev.device.type == "cuda")
+                pw = pw.copy_(dev).numpy()
+                trace.add("d2h_bytes", pw.nbytes)
+            k, ston, floor = (to_numpy(t) for t in stats)
+            trace.add("d2h_bytes", k.nbytes + ston.nbytes + floor.nbytes)
         self._hist_pw.append(pw)
-        self._bins.extend(to_numpy(k).tolist())
-        self._ston.extend(to_numpy(ston).tolist())
-        self._floor.extend(to_numpy(floor).tolist())
+        self._bins.extend(k.tolist())
+        self._ston.extend(ston.tolist())
+        self._floor.extend(floor.tolist())
         if not self.locked:
-            self._try_lock()
+            with trace.span("radar.lock"):
+                self._try_lock()
         if self.locked:
-            self._scan_pulses()
+            with trace.span("radar.scan"):
+                self._scan_pulses()
         self._trim()
 
     # ------------------------------------------------------------------
@@ -345,25 +391,28 @@ class RadarTracker:
 
     # ------------------------------------------------------------------
     def _scan_pulses(self) -> None:
-        """Locked-mode accumulation (radar.c:86-118, 346-420)."""
-        pw = np.concatenate(self._hist_pw, axis=0) if self._hist_pw \
-            else np.zeros((0, self.n_bins), np.float32)
+        """Locked-mode accumulation (radar.c:86-118, 346-420).  The history
+        stays a list of blocks: the scan reads the pulse bin's column of
+        it, and a display update copies only its own window of frames to
+        the device, so that a block's host work does not grow with the
+        history (some 1,300-1,600 frames at a pulse every 2.7 s)."""
+        col = np.concatenate([a[:, self.pulse_bin] for a in self._hist_pw]) \
+            if self._hist_pw else np.zeros(0, np.float32)
+        n = len(col)
         ston = np.array(self._ston)
         centers, _ = self._pulse_centers(ston)
-        pw_j = None     # the history on the device, moved on first use
         for c in centers:
             if c < self._next_scan - self._consumed:
                 continue
             # update_radar_average: max at pulse_bin within ±4 (radar.c:
             # 92-105), walk to the pulse end (1 % of peak), back up 10
             lo = max(c - 4, 0)
-            hi = min(c + 5, len(pw))
+            hi = min(c + 5, n)
             if hi <= lo:
                 continue
-            col = pw[lo:hi, self.pulse_bin]
-            ia = lo + int(np.argmax(col))
-            t1 = pw[ia, self.pulse_bin]
-            while ia + 1 < len(pw) and 0.01 * t1 < pw[ia, self.pulse_bin]:
+            ia = lo + int(np.argmax(col[lo:hi]))
+            t1 = col[ia]
+            while ia + 1 < n and 0.01 * t1 < col[ia]:
                 ia += 1
             start = ia - 10
             if start < 0:
@@ -373,16 +422,27 @@ class RadarTracker:
                 self._next_scan = self._consumed + c + max(
                     self.pulse_sep // 2, 1)
                 continue
-            if start + self.lines > len(pw):
+            if start + self.lines > n:
                 continue    # window not fully buffered yet; retry later
-            if pw_j is None:
-                pw_j = torch.from_numpy(pw).to(self._device)
+            window = self._window(start)
+            trace.add("h2d_bytes", window.nbytes)
             self._avg = _accumulate(
-                self._avg, pw_j, start, self.decayfac, self.lines,
-                self.first_bin, self.last_bin)
+                self._avg, torch.from_numpy(window).to(self._device), 0,
+                self.decayfac, self.lines, 0, self.last_bin - self.first_bin)
             self.update_cnt += 1
             self._next_scan = self._consumed + c + max(
                 self.pulse_sep // 2, 1)
+
+    def _window(self, start: int) -> np.ndarray:
+        """History frames [start, start + lines), the display's bins only,
+        gathered from the blocks they lie in."""
+        parts, pos, stop = [], 0, start + self.lines
+        for a in self._hist_pw:
+            lo, hi = max(start - pos, 0), min(stop - pos, len(a))
+            if lo < hi:
+                parts.append(a[lo:hi, self.first_bin:self.last_bin])
+            pos += len(a)
+        return np.concatenate(parts, axis=0)
 
     # ------------------------------------------------------------------
     def _trim(self) -> None:
