@@ -6,8 +6,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device   require CUDA, print the card, its power limit, the torch and
             CUDA versions; turn TF32 off for matmul and cuDNN.
-2. build    build the four kernels of linrad_tpu_torch/csrc/ (the fused
-            fft1, the blanker's fits, sellim's taper, the stupid blanker)
+2. build    build the five kernels of linrad_tpu_torch/csrc/ (the fused
+            fft1, the blanker's fits, sellim's taper, the stupid blanker,
+            the radar front's statistics)
             with nvcc (sm_90a),
             one nvcc each, all at once, and print the build seconds and
             what ptxas says of registers and spills.
@@ -63,7 +64,19 @@ Phases, in order; any failure raises and the script exits non-zero:
             channels, pw 30, a floor of 0) and under vmap over 8 flagship
             streams and over 8 crafted ones, each with its own floor:
             weak', pwr' and the count bit-equal to the plain version's, the
-            vmap call bit-equal to separate calls; its ptxas lines.  Two runs
+            vmap call bit-equal to separate calls; its ptxas lines;
+            radar_stats (frame_pulse_stats, the radar front's statistics)
+            on the radar front's power of preset(RADAR) steps (64 x 2,048)
+            at walk_steps 32, 0 and 64, on the crafted cases (STATS_CASES:
+            noise, spikes, skirts, skirts stopped after 1-70 steps, a
+            skirt longer than any walk, ties of the maximum, peaks on the
+            row's ends) at every n of 256, 2,048, 2,050 and 4,096, 1, 64
+            and 200 frames and walk_steps 0, 1, 4, 31, 32, 33 and 64, and
+            under vmap over 8 of the front's steps: peak bins equal to the
+            plain version's, floor and S/N within 1e-5 of it and the floor
+            within 1e-5 of the mean outside the walks' ends recomputed in
+            float64, the vmap call one launch bit-equal to separate calls;
+            its ptxas lines.  Two runs
             bit-identical, a replay from a CUDA graph bit-equal to the
             eager call.  Per case
             device_ms (graph replay), eager ms, the launch floor, bound_ms
@@ -276,7 +289,8 @@ Phases, in order; any failure raises and the script exits non-zero:
             graph bit-equal to the eager front in every step, a tracker
             fed the card's power as a tensor (its own statistics on the
             card) deciding the same, lock, pulse separation and echo
-            range equal to the CPU run's; one kernel launch per replay.
+            range equal to the CPU run's; one launch of the fused fft1
+            and one of radar_stats per replay.
             Then ms per step of the graphed and the eager front in
             turns, kernels per replay and per display update.
 24. fft2    fft2_step at the flagship geometry: three steps of seeded
@@ -591,10 +605,13 @@ def phase_kernel(dev: dict) -> dict:
 
 # ---- phase 3b: the loop kernels ---------------------------------------
 
-# The two device loops of the main path and the JAX loops they replace
+# The hand kernels of device loops and the JAX loops they replace; the
+# case of each kernel's report at its main path's shape
 LOOP_KERNELS = (("blanker_fits", "linrad_tpu/ops/blanker.py:322"),
                 ("sellim_taper", "linrad_tpu/ops/sellim.py:150"),
-                ("blanker_clear", "linrad_tpu/ops/blanker.py:449"))
+                ("blanker_clear", "linrad_tpu/ops/blanker.py:449"),
+                ("radar_stats", "linrad_tpu/weak/radar.py:84"))
+LOOP_MAIN_CASE = {"radar_stats": "radar"}
 LOOP_FITS_TOL = 1e-5     # weak and pwr against the plain version: max_rel
 LOOP_TAPER_TOL = 1e-6    # the tapered gains: max_rel; the signs exact
 # The chain through the loop kernels against the same with their plain
@@ -1513,6 +1530,231 @@ def phase_clear(dev: dict, floor: float | None = None,
     return rep
 
 
+# Crafted frames for frame_pulse_stats (the radar front's statistics), held
+# against the plain version on the card (phase 3b,
+# tests/test_torch_radar_stats.py -m card) and, through a numpy model of
+# the kernel's ballot walks, on the CPU: noise in [0, 1) under what each
+# case adds: a spike a frame; Gaussian skirts 0.7-6 bins wide, on the
+# row's first two and last two bins among them; skirts that fall
+# linearly for 1-70 bins each side, then a bin above their end stops the
+# walk (31, 32, 33, 63, 64 and 65 steps across the ballots' 32); a skirt
+# over the whole row, longer than any walk; ties of the maximum (two and
+# four bins, two neighbours, a constant row); peaks on bins 0, 1, n - 2
+# and n - 1.  Each case at every n of STATS_NS (2,050: rows whose starts
+# are not 16-byte aligned), every frame count and every walk bound.
+STATS_CASES = ("noise", "spike", "skirts", "ramps", "long-skirt", "ties",
+               "edges")
+STATS_NS = (256, 2048, 2050, 4096)
+STATS_FRAMES = (1, 64, 200)
+STATS_WALKS = (0, 1, 4, 31, 32, 33, 64)
+STATS_RAMPS = (1, 2, 30, 31, 32, 33, 34, 62, 63, 64, 65, 70)
+STATS_TOL = 1e-5         # floor and S/N: the largest relative gap
+
+
+def stats_case(name: str, frames: int, n: int) -> np.ndarray:
+    """(frames, n) float32 power of one crafted case of STATS_CASES."""
+    rng = np.random.default_rng(
+        (STATS_CASES.index(name), frames, n))
+    pw = rng.random((frames, n)).astype(np.float32)
+    bins = np.arange(n)
+
+    def skirt(c, w):
+        return (1e4 * np.exp(-0.5 * ((bins - c) / w) ** 2)).astype(
+            np.float32)
+
+    for f, row in enumerate(pw):
+        if name == "spike":
+            row[rng.integers(n)] = 5000.0
+        elif name == "skirts":
+            c = (0, 1, n - 1, n - 2, 60, n // 2, n - 40, 30)[f] if f < 8 \
+                else rng.integers(n)
+            row += skirt(c, (3.0, 2.0, 4.0, 1.5, 6.0, 5.0, 0.7, 4.5)[f % 8])
+        elif name == "ramps":
+            c = rng.integers(72, n - 72)
+            for side, length in zip((-1, 1), rng.choice(STATS_RAMPS, 2)):
+                row[c] = 1000.0
+                d = np.arange(1, length + 1)
+                row[c + side * d] = 1000.0 - 10.0 * d
+                row[c + side * (length + 1)] = 1000.0 - 10.0 * length + 5.0
+        elif name == "long-skirt":
+            c = n // 2 + f % 16 - 8
+            row[:] = 0.001 * row + (n - np.abs(bins - c))
+        elif name == "ties":
+            kind = f % 4
+            if kind == 0:
+                row[rng.choice(n, 2, replace=False)] = 5.0
+            elif kind == 1:
+                c = rng.integers(n - 1)
+                row[c:c + 2] = 5.0
+            elif kind == 2:
+                row[rng.choice(n, 4, replace=False)] = 5.0
+            else:
+                row[:] = 1.0
+        elif name == "edges":
+            row += skirt((0, 1, n - 2, n - 1)[f % 4], 3.0)
+    return pw
+
+
+def stats_walk_ends(pw: np.ndarray, k: np.ndarray, walk_steps: int
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """(ia, ib) of each frame: radar.c's two walks from the peak bins k,
+    each bounded at walk_steps, in numpy."""
+    f, n = pw.shape
+    rows = np.arange(f)
+
+    def walk(d):
+        idx = k.copy()
+        for _ in range(min(walk_steps, n)):
+            nxt, nxt2 = idx + d, idx + 2 * d
+            cur = pw[rows, idx]
+            step = ((nxt2 >= 0) & (nxt2 <= n - 1)
+                    & (cur > pw[rows, np.clip(nxt, 0, n - 1)])
+                    & (cur > pw[rows, np.clip(nxt2, 0, n - 1)]))
+            idx = np.where(step, nxt, idx)
+        return idx
+
+    return walk(-1), walk(1) + 1
+
+
+def stats_floor64(pw: np.ndarray, ia: np.ndarray, ib: np.ndarray
+                  ) -> np.ndarray:
+    """Each frame's mean power outside [ia, ib), in float64."""
+    n = pw.shape[1]
+    bins = np.arange(n)[None, :]
+    outside = (bins < ia[:, None]) | (bins >= ib[:, None])
+    t1 = np.where(outside, pw.astype(np.float64), 0.0).sum(1)
+    return t1 / np.maximum(n - (ib - ia), 1)
+
+
+def rel_gap(a, b) -> float:
+    """max |a - b| / |b| over the elements, in float64."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def stats_gaps(power: torch.Tensor, walk_steps: int, got, want) -> dict:
+    """The kernel's (k, ston, floor) of power (frames, n) or (R, frames,
+    n) against the plain version's: the peak bins the same, the floor and
+    the S/N within STATS_TOL, and the floor within STATS_TOL of the mean
+    outside the walks' ends recomputed in float64 (a walk one bin off
+    moves it further on these frames), or it raises.  Returns the
+    largest relative gaps and the floor's largest absolute one."""
+    n = power.shape[-1]
+    pw = power.reshape(-1, n).cpu().numpy()
+    k, ston, nf = (t.reshape(-1).cpu().numpy() for t in got)
+    wk, wston, wnf = (t.reshape(-1).cpu().numpy() for t in want)
+    if got[0].dtype != torch.int64 or not np.array_equal(k, wk):
+        raise AssertionError(f"frame_pulse_stats: peak bins differ from the "
+                             f"plain version's in "
+                             f"{int(np.sum(k != wk))} frames")
+    floor64 = stats_floor64(pw, *stats_walk_ends(pw, k, walk_steps))
+    gaps = {"floor": rel_gap(nf, wnf), "ston": rel_gap(ston, wston),
+            "floor64": rel_gap(nf, floor64)}
+    if not max(gaps.values()) <= STATS_TOL:
+        raise AssertionError(f"frame_pulse_stats at walk_steps {walk_steps}"
+                             f": {gaps} over {STATS_TOL}")
+    return {**gaps, "abs": float(np.max(np.abs(nf - wnf)))}
+
+
+def check_stats(power: torch.Tensor, walk_steps: int, got, want
+                ) -> tuple[float, str]:
+    """:func:`stats_gaps` as phase 3b's compare: (max_abs_err, text)."""
+    gaps = stats_gaps(power, walk_steps, got, want)
+    return gaps["abs"], (
+        "peak bins equal to the plain version's, floor / S/N / floor "
+        "against float64 from the walk ends: " + ", ".join(
+            f"{gaps[g]:.2e}" for g in ("floor", "ston", "floor64")))
+
+
+def stats_case_run(dev: dict, label: str, power: torch.Tensor,
+                   walk_steps: int, floor: float, main: bool = False
+                   ) -> dict:
+    """frame_pulse_stats on power (frames, n), or (R, frames, n) under
+    torch.func.vmap (one launch, bit-equal to R calls), against its plain
+    version on the card, timed beside it."""
+    from linrad_tpu_torch.weak import radar as rd
+    if power.dim() == 3:
+        kernel = lambda: torch.func.vmap(
+            rd.frame_pulse_stats, in_dims=(0, None))(power, walk_steps)
+        plain = lambda: tuple(torch.stack(v) for v in zip(*(
+            rd._frame_pulse_stats_reference(p, walk_steps) for p in power)))
+        calls = rd.stats_count.launches
+        got = kernel()
+        if rd.stats_count.launches != calls + 1:
+            raise AssertionError("frame_pulse_stats under vmap: expected "
+                                 "one launch")
+        each = [rd.frame_pulse_stats(p, walk_steps) for p in power]
+        if not all(same_bits(torch.stack(v), g)
+                   for v, g in zip(zip(*each), got)):
+            raise AssertionError("frame_pulse_stats under vmap differs "
+                                 "from separate calls")
+    else:
+        kernel = lambda: rd.frame_pulse_stats(power, walk_steps)
+        plain = lambda: rd._frame_pulse_stats_reference(power, walk_steps)
+    rows = power.numel() // power.shape[-1]
+    return loop_case(dev, "radar_stats", f"{label} {tuple(power.shape)}, "
+                     f"walk_steps {walk_steps}", kernel, plain,
+                     lambda got, want: check_stats(power, walk_steps, got,
+                                                   want),
+                     4 * power.numel() + 16 * rows, 0, floor, 20, True, main)
+
+
+def phase_stats(dev: dict, floor: float | None = None) -> dict:
+    """radar_stats' cases of phase 3b: the radar front's power of
+    preset(RADAR) steps (phase 23's pulse train), timed beside the plain
+    version; every crafted case at every n, frame count and walk bound;
+    vmap over 8 of the front's steps."""
+    from linrad_tpu_torch import RxMode, derive_geometry, preset
+    from linrad_tpu_torch.io.modeinput import radar_iq
+    from linrad_tpu_torch.ops import fused_fft1 as ff
+    from linrad_tpu_torch.utils import cuda_build
+    from linrad_tpu_torch.utils.timing import graph_ms
+    from linrad_tpu_torch.weak import radar as rd
+    t0 = time.perf_counter()
+    for line in cuda_build.build("radar_stats")[1]["log"].splitlines():
+        if any(w in line for w in ("entry function", "registers", "spill",
+                                   "smem")):
+            print(f"loops radar_stats ptxas: {line.strip()}")
+    if floor is None:
+        cuda = torch.device("cuda", torch.cuda.current_device())
+        floor = graph_ms(lambda: ff.empty_launch(cuda), 50, 20)
+    p = preset(RxMode.RADAR, fft1_variant="pallas")
+    geo = derive_geometry(p)
+    steps = LOOP_STREAMS + 1
+    iq = radar_iq(geo, steps, tx_bin=RADAR_TX_BIN, pulse_sep=RADAR_SEP,
+                  pulse_width=RADAR_WIDTH, echo_delay=RADAR_DELAY,
+                  doppler_bins=RADAR_DOPPLER)[:, None]
+    powers = [o[0] for o in radar_mode_fronts(p, iq, steps, "cuda",
+                                              False)[2]]
+    rep = {"radar": stats_case_run(dev, "radar front", powers[1], 32,
+                                   floor, main=True)}
+    for walk in (0, 64):
+        rep[f"radar walk {walk}"] = stats_case_run(
+            dev, "radar front", powers[1], walk, floor)
+    for name in STATS_CASES:
+        worst = {}
+        for n in STATS_NS:
+            for frames in STATS_FRAMES:
+                power = torch.from_numpy(stats_case(name, frames, n)).cuda()
+                for walk in STATS_WALKS:
+                    got = rd.frame_pulse_stats(power, walk)
+                    want = rd._frame_pulse_stats_reference(power, walk)
+                    for g, v in stats_gaps(power, walk, got, want).items():
+                        worst[g] = max(worst.get(g, 0.0), v)
+        rep[f"edge {name}"] = worst
+        print(f"loops radar_stats edge {name}: n {STATS_NS} x frames "
+              f"{STATS_FRAMES} x walk_steps {STATS_WALKS}: peak bins equal, "
+              f"walk ends pinned; largest relative gaps floor "
+              f"{worst['floor']:.2e}, S/N {worst['ston']:.2e}, floor "
+              f"against float64 {worst['floor64']:.2e} (bar {STATS_TOL}); "
+              f"floor max_abs_err {worst['abs']:.3e}", flush=True)
+    rep["vmap"] = stats_case_run(dev, f"vmap R={LOOP_STREAMS}",
+                                 torch.stack(powers[1:]), 32, floor)
+    print(f"loops radar_stats: {len(rep)} cases in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return rep
+
+
 def phase_loop_kernels(dev: dict) -> dict:
     """Phase 3b.  Returns, per loop kernel, its report at the main path's
     shape (the flagship's) and at every other shape."""
@@ -1574,12 +1816,13 @@ def phase_loop_kernels(dev: dict) -> dict:
 
     taper_rep = phase_taper(dev, floor, tapers)
     clear_rep = phase_clear(dev, floor, clears)
+    stats_rep = phase_stats(dev, floor)
     print(f"loops: kernels against their plain versions in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     phase_loop_chain(dev)
     print(f"loops: phase 3b in {time.perf_counter() - t0:.1f} s", flush=True)
     return {"blanker_fits": fits_rep, "sellim_taper": taper_rep,
-            "blanker_clear": clear_rep}
+            "blanker_clear": clear_rep, "radar_stats": stats_rep}
 
 
 def compare_batches(got: dict, ref: dict, geo, label: str) -> None:
@@ -4561,14 +4804,16 @@ def phase_radar_mode(dev: dict, device="cuda") -> int:
     bit for bit; a tracker fed the eager front's power alone (its own
     frame_pulse_stats on the card) decides the same; lock, pulse
     separation and echo range equal to the same run on the CPU; one kernel
-    launch per replay.  Then ms per step of the graphed and eager front in
-    turns, the kernels of a replay and of one display update
-    (``_accumulate``, kept eager).  Returns the graphed front's launches
-    over the RADAR_MODE_STEPS steps."""
+    launch of fused_fft1 and one of radar_stats per replay.  Then ms per
+    step of the graphed and eager front in turns, the kernels of a replay
+    and of one display update (``_accumulate``, kept eager).  Returns the
+    graphed front's launches of fused_fft1 and of radar_stats over the
+    RADAR_MODE_STEPS steps."""
     from linrad_tpu_torch import RxMode, derive_geometry, preset
     from linrad_tpu_torch.io.modeinput import radar_iq
     from linrad_tpu_torch.ops.fused_fft1 import fused_fft1
-    from linrad_tpu_torch.weak.radar import RadarTracker, _accumulate
+    from linrad_tpu_torch.weak.radar import (RadarTracker, _accumulate,
+                                             stats_count)
     t0 = time.perf_counter()
     on_card = torch.device(device).type == "cuda"
     p = preset(RxMode.RADAR, fft1_variant="pallas")
@@ -4578,12 +4823,16 @@ def phase_radar_mode(dev: dict, device="cuda") -> int:
                   pulse_width=RADAR_WIDTH, echo_delay=RADAR_DELAY,
                   doppler_bins=RADAR_DOPPLER)[:, None]
     n = RADAR_MODE_STEPS
+    captured = stats_count.captured
     front, tg, g_outs = radar_mode_fronts(p, iq, n, device,
                                           None if on_card else True,
                                           recorded_fft1)
+    captured = stats_count.captured - captured
     wrapper = fused_fft1.launches
+    stats_calls = stats_count.launches
     eager, te, e_outs = radar_mode_fronts(p, iq, n, device, False)
     wrapper = fused_fft1.launches - wrapper
+    stats_calls = stats_count.launches - stats_calls
     for i, (a, b) in enumerate(zip(g_outs, e_outs)):
         if not all(torch.equal(x, y) for x, y in zip(a, b)):
             raise AssertionError(f"radar mode step {i}: the graph's power "
@@ -4616,14 +4865,17 @@ def phase_radar_mode(dev: dict, device="cuda") -> int:
         raise AssertionError(f"radar mode: the trackers decided {views}")
     if rel_pw > 1e-5 or rel_avg > 1e-5:
         raise AssertionError("radar mode: power or display off the CPU's")
-    print(f"radar mode: fused_fft1 {front.graph.kernels} node per replay, "
-          f"launches {front.kernel_launches} in {n} replays; the eager "
-          f"front's wrapper calls {wrapper}")
     launches = front.kernel_launches
+    stats_launches = captured * front.graph.replays
+    print(f"radar mode: fused_fft1 {front.graph.kernels} node per replay, "
+          f"launches {launches} in {n} replays; the eager front's wrapper "
+          f"calls {wrapper}; radar_stats {captured} node per replay, "
+          f"launches {stats_launches}; the eager front's {stats_calls}")
     if on_card and (front.graph.kernels != 1 or launches != n
-                    or wrapper != n):
-        raise AssertionError("radar mode: expected one kernel launch per "
-                             "step")
+                    or wrapper != n or captured != 1 or stats_launches != n
+                    or stats_calls != n):
+        raise AssertionError("radar mode: expected one launch of each "
+                             "kernel per step")
     if on_card:
         s = geo.samples_per_step
         blocks = [torch.from_numpy(iq[i * s:(i + 1) * s]).cuda()
@@ -4669,7 +4921,7 @@ def phase_radar_mode(dev: dict, device="cuda") -> int:
               f"[{dev['smi']}]")
         graph_report_one(front.graph, "radar mode", dev)
     print(f"radar mode: phase 23 in {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, stats_launches
 
 
 def phase_fft2_step(dev: dict, device="cuda", tiny: bool = False,
@@ -4867,7 +5119,8 @@ def main() -> None:
     launches += phase_sharded(dev)
     launches += phase_graphed(dev)
     launches += phase_presets(dev)
-    launches += phase_radar_mode(dev)
+    radar_launches, loop_launches["radar_stats"] = phase_radar_mode(dev)
+    launches += radar_launches
     phase_fft2_step(dev)
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} "
           f"s [{dev['smi']}]")
@@ -4883,7 +5136,7 @@ def main() -> None:
             "name": name, "route": "cuda",
             "source": f"linrad_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": loop_launches[name],
-            **loops[name]["flagship"],
+            **loops[name][LOOP_MAIN_CASE.get(name, "flagship")],
             "by_case": {str(k): v for k, v in loops[name].items()}})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -27,7 +27,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "linrad_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("fused_fft1", "blanker_fits", "sellim_taper", "blanker_clear")
+KERNELS = ("fused_fft1", "blanker_fits", "sellim_taper", "blanker_clear",
+           "radar_stats")
 
 
 def nvcc(name: str) -> str:

@@ -18,13 +18,18 @@ device.  :class:`RadarTracker` is host numpy around those two functions,
 this package's copy of the JAX package's class.
 
 The JAX package jits ``frame_pulse_stats`` and ``_accumulate``.  Here
+:func:`frame_pulse_stats` is a custom operator: on a CUDA tensor one
+launch of the hand-written kernel in ``csrc/radar_stats.cu`` (each frame's
+peak, both bounded walks in closed form by a warp's ballot, the floor), on
+a CPU tensor its plain version :func:`_frame_pulse_stats_reference`, the
+loop that ran as some 970 small kernels a step on the card.
 :class:`RadarFront` is the radar mode's device path for one block shape,
 fft1 (the fused kernel with ``variant="pallas"``), the power and the
 per-frame statistics, replayed from one CUDA graph per step
-(:class:`..pipeline.batch.GraphedStep`): the skirt walk alone is some
-960 small kernels.  ``_accumulate`` stays an eager multiply-add of a
-slice, two kernels a display update: a graph would replay the same, with
-``start`` written to a device scalar before each replay.
+(:class:`..pipeline.batch.GraphedStep`).  ``_accumulate`` stays an eager
+multiply-add of a slice, two kernels a display update: a graph would
+replay the same, with ``start`` written to a device scalar before each
+replay.
 
 Each :meth:`RadarFront.feed` is a root span ``radar.block`` of the tracer
 (``utils/trace.py``) over ``radar.h2d`` (the block's copy in),
@@ -44,6 +49,8 @@ the display updates' windows) and read back (``d2h_bytes``), and
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -54,7 +61,7 @@ from ..ops.fft1 import FFT1State, FFT1Tables, fft1_step
 from ..pipeline.batch import GraphedStep
 from ..pipeline.receiver import (_block_dtype, _block_rows, graph_wanted,
                                  resolve_device)
-from ..utils import trace
+from ..utils import cuda_build, trace
 from ..utils.host import to_numpy
 
 SPEED_OF_LIGHT = 299_792_458.0
@@ -82,21 +89,18 @@ class RadarParams:
     mute_check: bool = True
 
 
-def frame_pulse_stats(power: torch.Tensor, walk_steps: int = 32
-                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per-transform pulse statistics, batched over frames.
+STATS_MAX_N = 1 << 30   # bins a frame: the kernel's positions are int32
+# launches of csrc/radar_stats.cu, made and recorded into CUDA graphs
+stats_count = cuda_build.LaunchCount()
+trace.count_launches("radar_stats", stats_count)
 
-    power: (frames, fft1_size) float32 power spectra (the fft1_sumsq
-    rows of radar.c:195-226).  Returns per-frame ``(peak_bin, ston,
-    noise_floor)``.
 
-    The reference walks the skirt with ``while(ia>1 && p[ia]>p[ia-1] &&
-    p[ia]>p[ia-2]) ia--`` (radar.c:206-215), unbounded in C; here
-    ``walk_steps`` iterations over all frames at once, an iteration that
-    may not step leaving its frame's index where it is (radar pulses are
-    narrow; 32 bins each side is far beyond any real skirt, and the walk
-    freezes at the first failing bin exactly like the C).
-    """
+def _frame_pulse_stats_reference(power: torch.Tensor, walk_steps: int = 32
+                                 ) -> tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """Plain PyTorch version of :func:`frame_pulse_stats`: ``walk_steps``
+    iterations over all frames at once, each a gather of three bins, the
+    compares and a ``where``."""
     f, n = power.shape
     k = torch.argmax(power, dim=1)
     peak = torch.gather(power, 1, k[:, None])[:, 0]
@@ -122,6 +126,114 @@ def frame_pulse_stats(power: torch.Tensor, walk_steps: int = 32
     floor = t1 / cnt
     ston = peak / floor.clamp(min=1e-30)
     return k, ston, floor
+
+
+def _check_stats(power: torch.Tensor, walk_steps: int) -> None:
+    """Refuse what :func:`frame_pulse_stats` does not take: power (F, n)
+    float32 with F >= 1 and 1 <= n < STATS_MAX_N, on the CPU or a CUDA
+    device; walk_steps >= 0.  Rows that are not dense are copied to rows
+    that are before a launch."""
+    if power.dim() != 2 or power.dtype != torch.float32 \
+            or power.shape[0] < 1 or not 1 <= power.shape[1] < STATS_MAX_N:
+        raise ValueError(f"frame_pulse_stats: power must be (F, n) float32 "
+                         f"with F >= 1 and 1 <= n < {STATS_MAX_N}, got "
+                         f"{tuple(power.shape)} {power.dtype}")
+    if walk_steps < 0:
+        raise ValueError(f"frame_pulse_stats: walk_steps {walk_steps} < 0")
+    # meta: the fake tensors of a trace, which reach only the fake
+    if power.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"frame_pulse_stats: unsupported device "
+                         f"{power.device}")
+
+
+@functools.lru_cache(maxsize=1)
+def _stats_fn():
+    """The C launcher of csrc/radar_stats.cu, built at first use."""
+    lib, _info = cuda_build.build("radar_stats")
+    fn = lib.lrt_radar_stats
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _stats_launch(power: torch.Tensor, walk_steps: int):
+    """One launch over the rows of power (rows, n), each row dense, rows
+    any stride apart.  A walk takes at most n - 3 steps, so the kernel is
+    handed min(walk_steps, n)."""
+    if not power[0].is_contiguous():
+        power = power.contiguous()
+    rows, n = power.shape
+    dev = power.device
+    k = torch.empty(rows, dtype=torch.int64, device=dev)
+    ston = torch.empty(rows, dtype=torch.float32, device=dev)
+    floor = torch.empty(rows, dtype=torch.float32, device=dev)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    cuda_build.launch(_stats_fn(), (
+        power.data_ptr(), k.data_ptr(), ston.data_ptr(), floor.data_ptr(),
+        power.stride(0), rows, n, min(walk_steps, n), stream), dev,
+        f"frame_pulse_stats at ({rows}, {n})")
+    stats_count.add()
+    return k, ston, floor
+
+
+def frame_pulse_stats(power: torch.Tensor, walk_steps: int = 32
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-transform pulse statistics, batched over frames.
+
+    power: (frames, fft1_size) float32 power spectra (the fft1_sumsq
+    rows of radar.c:195-226).  Returns per-frame ``(peak_bin, ston,
+    noise_floor)``: int64, float32, float32.
+
+    The reference walks the skirt with ``while(ia>1 && p[ia]>p[ia-1] &&
+    p[ia]>p[ia-2]) ia--`` (radar.c:206-215), unbounded in C; here at most
+    ``walk_steps`` steps a side, a step that fails ending the walk (radar
+    pulses are narrow; 32 bins each side is far beyond any real skirt, and
+    the walk freezes at the first failing bin exactly like the C).
+
+    On a CUDA tensor one launch of ``csrc/radar_stats.cu`` (the walks as
+    the count of steps that pass in a row, by a warp's ballot): the peak
+    bins and walk ends bit for bit the plain version's, the floor and S/N
+    to the rounding of a float32 sum taken in another order; on a CPU
+    tensor the plain version :func:`_frame_pulse_stats_reference`.
+    Through the PyTorch custom operator
+    ``torch.ops.linrad_tpu_torch.frame_pulse_stats``, with a rule for
+    ``torch.func.vmap``: R streams of F frames make one launch over R F
+    rows.  Its launches are counted in ``stats_count``."""
+    return torch.ops.linrad_tpu_torch.frame_pulse_stats(power, walk_steps)
+
+
+@torch.library.custom_op("linrad_tpu_torch::frame_pulse_stats",
+                         mutates_args=())
+def _frame_pulse_stats_op(power: torch.Tensor, walk_steps: int
+                          ) -> tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    _check_stats(power, walk_steps)
+    if power.device.type == "cpu":
+        return _frame_pulse_stats_reference(power, walk_steps)
+    return _stats_launch(power, walk_steps)
+
+
+@_frame_pulse_stats_op.register_fake
+def _frame_pulse_stats_fake(power, walk_steps):
+    _check_stats(power, walk_steps)
+    f = power.shape[0]
+    return (power.new_empty(f, dtype=torch.int64), power.new_empty(f),
+            power.new_empty(f))
+
+
+@_frame_pulse_stats_op.register_vmap
+def _frame_pulse_stats_vmap(info, in_dims, power, walk_steps):
+    """R streams of (F, n): on the card one launch over the R F rows; on
+    the CPU the plain version once per stream."""
+    power = power.movedim(in_dims[0], 0)
+    _check_stats(power[0], walk_steps)
+    r, f, n = power.shape
+    if power.device.type == "cpu":
+        outs = [_frame_pulse_stats_reference(p, walk_steps) for p in power]
+        return tuple(torch.stack(v) for v in zip(*outs)), (0, 0, 0)
+    out = _stats_launch(power.reshape(r * f, n), walk_steps)
+    return tuple(t.reshape(r, f) for t in out), (0, 0, 0)
 
 
 def _accumulate(avg: torch.Tensor, frames: torch.Tensor, start: int,
