@@ -495,11 +495,9 @@ def phase_device() -> dict:
 
 def phase_build() -> None:
     """Every kernel of csrc/ built at once, one nvcc each."""
-    from linrad_tpu_torch.ops import fused_fft1 as ff
     from linrad_tpu_torch.utils import cuda_build
     t0 = time.perf_counter()
     built = cuda_build.build_all()
-    ff.build()
     print(f"build: {len(built)} kernels in {time.perf_counter() - t0:.2f} s")
     for name, (_lib, info) in built.items():
         print(f"build {name}: {info['path']} (nvcc "
@@ -635,6 +633,23 @@ def loop_counts() -> dict:
     from linrad_tpu_torch.ops import sellim as sl
     return {"blanker_fits": bl.fits_count, "sellim_taper": sl.taper_count,
             "blanker_clear": bl.clear_count}
+
+
+def vmap_one_launch(kernel: str, run, each=None) -> None:
+    """run(), a call under torch.func.vmap, checked to be one launch of
+    ``kernel`` (its count as ``utils/cuda_build.COUNTS`` holds it) and,
+    where ``each`` is given (it returns the separate calls' outputs), the
+    same bits as those stacked."""
+    from linrad_tpu_torch.utils import cuda_build
+    count = cuda_build.COUNTS[kernel]
+    before = count.launches
+    got = run()
+    if count.launches != before + 1:
+        raise AssertionError(f"{kernel} under vmap: expected one launch")
+    if each is not None and not all(same_bits(torch.stack(v), g)
+                                    for v, g in zip(zip(*each()), got)):
+        raise AssertionError(f"{kernel} under vmap differs from separate "
+                             f"calls")
 
 
 def record_calls(module, name: str, run) -> list:
@@ -1043,10 +1058,7 @@ def fits_vmap_case(dev: dict, streams: list, floor: float) -> dict:
         outs = [bl._blanker_fits_reference(*a) for a in streams]
         return tuple(torch.stack(v) for v in zip(*outs))
 
-    before = bl.fits_count.launches
-    kernel()
-    if bl.fits_count.launches != before + 1:
-        raise AssertionError("blanker_fits under vmap: expected one launch")
+    vmap_one_launch("blanker_fits", kernel)
     each = [valid_fits(a) for a in streams]
     m = sum(each)
     nbytes, ops = fits_bytes_ops((w, p, c, b, bank, pf, thr, pw, mp, lead,
@@ -1202,11 +1214,7 @@ def taper_case(dev: dict, label: str, lim: torch.Tensor,
         plain = lambda: (torch.stack([sl._sellim_taper_reference(a, b)
                                       for a, b in zip(lim, budgets)]),)
         passes = [taper_passes(a, b) for a, b in zip(lim, budgets)]
-        before = sl.taper_count.launches
-        kernel()
-        if sl.taper_count.launches != before + 1:
-            raise AssertionError("sellim_taper under vmap: expected one "
-                                 "launch")
+        vmap_one_launch("sellim_taper", kernel)
     else:
         kernel = lambda: (sl.sellim_taper(lim, budget),)
         plain = lambda: (sl._sellim_taper_reference(lim, budget),)
@@ -1456,17 +1464,9 @@ def clear_case(dev: dict, label: str, args: tuple, floor: float,
         plain = lambda: tuple(torch.stack(v) for v in zip(*(
             bl._blanker_clear_reference(weak[i], pwr[i], nf[i], limit, pw)
             for i in range(len(weak)))))
-        calls = bl.clear_count.launches
-        got = kernel()
-        if bl.clear_count.launches != calls + 1:
-            raise AssertionError("blanker_clear under vmap: expected one "
-                                 "call")
-        each = [bl.blanker_clear(weak[i], pwr[i], nf[i], limit, pw)
-                for i in range(len(weak))]
-        if not all(same_bits(torch.stack(v), g)
-                   for v, g in zip(zip(*each), got)):
-            raise AssertionError("blanker_clear under vmap differs from "
-                                 "separate calls")
+        vmap_one_launch("blanker_clear", kernel, lambda: [
+            bl.blanker_clear(weak[i], pwr[i], nf[i], limit, pw)
+            for i in range(len(weak))])
     else:
         kernel = lambda: bl.blanker_clear(weak, pwr, nf, limit, pw)
         plain = lambda: bl._blanker_clear_reference(weak, pwr, nf, limit,
@@ -1678,16 +1678,8 @@ def stats_case_run(dev: dict, label: str, power: torch.Tensor,
             rd.frame_pulse_stats, in_dims=(0, None))(power, walk_steps)
         plain = lambda: tuple(torch.stack(v) for v in zip(*(
             rd._frame_pulse_stats_reference(p, walk_steps) for p in power)))
-        calls = rd.stats_count.launches
-        got = kernel()
-        if rd.stats_count.launches != calls + 1:
-            raise AssertionError("frame_pulse_stats under vmap: expected "
-                                 "one launch")
-        each = [rd.frame_pulse_stats(p, walk_steps) for p in power]
-        if not all(same_bits(torch.stack(v), g)
-                   for v, g in zip(zip(*each), got)):
-            raise AssertionError("frame_pulse_stats under vmap differs "
-                                 "from separate calls")
+        vmap_one_launch("radar_stats", kernel, lambda: [
+            rd.frame_pulse_stats(p, walk_steps) for p in power])
     else:
         kernel = lambda: rd.frame_pulse_stats(power, walk_steps)
         plain = lambda: rd._frame_pulse_stats_reference(power, walk_steps)

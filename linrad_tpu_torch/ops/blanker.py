@@ -31,14 +31,13 @@ batches their in-place ``index_put_``.
 from __future__ import annotations
 
 import ctypes
-import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..geometry import Geometry
-from ..utils import cuda_build, trace
+from ..utils import cuda_build
 from ..utils.segments import segment_max
 
 MAX_REFPULSES = 256  # fractional-shift bank depth (blnkdef.h:13)
@@ -273,8 +272,10 @@ def _clever_blanker_blocked(weak, pwr, tables, noise_floor, limit_amp,
 
 FITS_WINDOW = 256       # most samples in a fit window (pul x C): 8 a lane
 # launches of csrc/blanker_fits.cu, made and recorded into CUDA graphs
-fits_count = cuda_build.LaunchCount()
-trace.count_launches("blanker_fits", fits_count)
+fits_count = cuda_build.launch_count("blanker_fits")
+# the C launcher's argument types, the stream last
+FITS_ARGS = ((ctypes.c_void_p,) * 10 + (ctypes.c_longlong,) * 3
+             + (ctypes.c_int,) * 8 + (ctypes.c_void_p,))
 
 
 def _blanker_fits_reference(wpad, ppad, candp, bmax, refbank, phasefunc,
@@ -365,24 +366,6 @@ def _check_fits(wpad, ppad, candp, bmax, refbank, phasefunc, thr, pw,
     if len(devices) != 1:
         raise ValueError(f"blanker_fits: tensors on different devices "
                          f"{sorted(map(str, devices))}")
-    # meta: the fake tensors of a trace, which reach only the fake
-    if wpad.device.type not in ("cpu", "cuda", "meta"):
-        raise ValueError(f"blanker_fits: unsupported device {wpad.device}")
-
-
-@functools.lru_cache(maxsize=1)
-def _fits_lib():
-    """The library of csrc/blanker_fits.cu, built at first use, its C
-    functions typed."""
-    lib, _info = cuda_build.build("blanker_fits")
-    lib.lrt_blanker_fits.argtypes = ([ctypes.c_void_p] * 10
-                                     + [ctypes.c_longlong] * 3
-                                     + [ctypes.c_int] * 8
-                                     + [ctypes.c_void_p])
-    lib.lrt_blanker_fits_plan.argtypes = [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    lib.lrt_blanker_fits_scratch_words.argtypes = [ctypes.c_int]
-    return lib
 
 
 def fits_plan(total: int, c: int, pul: int, nref: int) -> dict:
@@ -391,7 +374,9 @@ def fits_plan(total: int, c: int, pul: int, nref: int) -> dict:
     from L2, the sub-block width W of its index, and its dynamic shared
     memory in bytes."""
     out = (ctypes.c_int * 3)()
-    err = _fits_lib().lrt_blanker_fits_plan(total, c, pul, nref, out)
+    err = cuda_build.bind("blanker_fits", "lrt_blanker_fits_plan",
+                          (ctypes.c_int,) * 4 + (ctypes.c_void_p,))(
+        total, c, pul, nref, out)
     if err:
         raise RuntimeError(f"blanker_fits: no shared-memory plan for "
                            f"{total} samples x {c} (CUDA error {err})")
@@ -399,36 +384,41 @@ def fits_plan(total: int, c: int, pul: int, nref: int) -> dict:
             "shared_bytes": out[2]}
 
 
-def _fits_launch(wpad, ppad, candp, blk: int, refbank, phasefunc, thr,
-                 shared: tuple, pw: int, max_pulses: int, lead: int, s: int):
-    """One call for R streams: wpad (R, T, C), ppad and candp (R, T),
-    blocks of blk samples; refbank, phasefunc and thr with a leading
-    stream axis of R, or without it where ``shared`` (three flags) says
-    they serve every stream.  The C function launches the prep kernel
-    (the working copies, the candidates' index) and the fits kernel.
-    Returns (weak (R, S, C), pwr (R, S), nfit (R,))."""
-    lib = _fits_lib()
+def _fits_launch(wpad, ppad, candp, bmax, refbank, phasefunc, thr,
+                 pw: int, max_pulses: int, lead: int, s: int):
+    """One call for R streams: wpad (R, T, C), ppad and candp (R, T), bmax
+    (R, T / block); refbank, phasefunc and thr with a leading stream axis
+    of R, or without it to serve every stream.  The C function launches
+    the prep kernel (the working copies, the candidates' index) and the
+    fits kernel.  Returns (weak (R, S, C), pwr (R, S), nfit (R,))."""
     dev = wpad.device
     r, total, c = wpad.shape
+    blk = total // bmax.shape[1]
     nref, pul = refbank.shape[-2:]
+    shared = (refbank.dim() == 2, phasefunc.dim() == 1, thr.dim() == 0)
     wpad, ppad, candp, refbank, phasefunc, thr = (
         x.contiguous() for x in (wpad, ppad, candp, refbank, phasefunc, thr))
+    words = cuda_build.bind("blanker_fits", "lrt_blanker_fits_scratch_words",
+                            (ctypes.c_int,))(total)
     wk = torch.empty((r, total, c), dtype=torch.complex64, device=dev)
     pk = torch.empty((r, total), dtype=torch.float32, device=dev)
-    scr = torch.empty(r * lib.lrt_blanker_fits_scratch_words(total),
-                      dtype=torch.int32, device=dev)
+    scr = torch.empty(r * words, dtype=torch.int32, device=dev)
     nfit = torch.empty(r, dtype=torch.int32, device=dev)
     strides = [0 if sh else x[0].numel()
                for sh, x in zip(shared, (refbank, phasefunc, thr))]
-    stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    cuda_build.launch(lib.lrt_blanker_fits, (
-        wpad.data_ptr(), ppad.data_ptr(), candp.data_ptr(), wk.data_ptr(),
-        pk.data_ptr(), scr.data_ptr(), refbank.data_ptr(),
-        phasefunc.data_ptr(), thr.data_ptr(), nfit.data_ptr(), *strides,
-        total, c, blk, pul, nref, pw, max_pulses, r, stream), dev,
-        f"blanker_fits at ({r}, {total}, {c})")
-    fits_count.add()
+    cuda_build.launch(
+        cuda_build.bind("blanker_fits", "lrt_blanker_fits", FITS_ARGS), (
+            wpad.data_ptr(), ppad.data_ptr(), candp.data_ptr(),
+            wk.data_ptr(), pk.data_ptr(), scr.data_ptr(), refbank.data_ptr(),
+            phasefunc.data_ptr(), thr.data_ptr(), nfit.data_ptr(), *strides,
+            total, c, blk, pul, nref, pw, max_pulses, r), dev,
+        f"blanker_fits at ({r}, {total}, {c})", fits_count)
     return wk[:, lead: lead + s], pk[:, lead: lead + s], nfit
+
+
+_fits = cuda_build.Streams("blanker_fits", _check_fits,
+                           _blanker_fits_reference, _fits_launch,
+                           shared=(4, 5, 6))
 
 
 @torch.library.custom_op("linrad_tpu_torch::blanker_fits", mutates_args=())
@@ -458,18 +448,11 @@ def blanker_fits(wpad: torch.Tensor, ppad: torch.Tensor, candp: torch.Tensor,
 
     A PyTorch custom operator (``torch.ops.linrad_tpu_torch.blanker_fits``)
     with a rule for ``torch.func.vmap``: R streams make one launch of R
-    blocks (:func:`_blanker_fits_vmap`).  Its launches are counted in
+    blocks, each stream's own arrays and threshold, the tables per stream
+    or shared (``_fits.vmap``).  Its launches are counted in
     ``fits_count``."""
-    _check_fits(wpad, ppad, candp, bmax, refbank, phasefunc, thr, pw,
-                max_pulses, lead, s)
-    if wpad.device.type == "cpu":
-        return _blanker_fits_reference(wpad, ppad, candp, bmax, refbank,
-                                       phasefunc, thr, pw, max_pulses, lead,
-                                       s)
-    weak, pwr, nfit = _fits_launch(
-        wpad[None], ppad[None], candp[None], wpad.shape[0] // bmax.shape[0],
-        refbank, phasefunc, thr, (True, True, True), pw, max_pulses, lead, s)
-    return weak[0], pwr[0], nfit[0]
+    return _fits(wpad, ppad, candp, bmax, refbank, phasefunc, thr, pw,
+                 max_pulses, lead, s)
 
 
 @blanker_fits.register_fake
@@ -483,35 +466,7 @@ def _blanker_fits_fake(wpad, ppad, candp, bmax, refbank, phasefunc, thr, pw,
             ppad.new_empty((), dtype=torch.int32))
 
 
-@blanker_fits.register_vmap
-def _blanker_fits_vmap(info, in_dims, wpad, ppad, candp, bmax, refbank,
-                       phasefunc, thr, pw, max_pulses, lead, s):
-    """R streams: on the card one launch of R blocks, each stream's own
-    arrays and threshold, the tables per stream or shared; on the CPU the
-    plain version once per stream."""
-    r = info.batch_size
-
-    def lead_axis(x, dim):
-        return x.movedim(dim, 0) if dim is not None \
-            else x.expand((r,) + tuple(x.shape))
-
-    data = [lead_axis(x, d) for x, d in zip((wpad, ppad, candp, bmax),
-                                            in_dims[:4])]
-    tabs = [x.movedim(d, 0) if d is not None else x
-            for x, d in zip((refbank, phasefunc, thr), in_dims[4:7])]
-    shared = tuple(d is None for d in in_dims[4:7])
-    _check_fits(*(x[0] for x in data),
-                *(t if h else t[0] for t, h in zip(tabs, shared)), pw,
-                max_pulses, lead, s)
-    if wpad.device.type == "cpu":
-        outs = [_blanker_fits_reference(
-            *(x[i] for x in data),
-            *(t if h else t[i] for t, h in zip(tabs, shared)), pw,
-            max_pulses, lead, s) for i in range(r)]
-        return tuple(torch.stack(v) for v in zip(*outs)), (0, 0, 0)
-    blk = data[0].shape[1] // data[3].shape[1]
-    return _fits_launch(*data[:3], blk, *tabs, shared, pw, max_pulses, lead,
-                        s), (0, 0, 0)
+blanker_fits.register_vmap(_fits.vmap)
 
 
 def _clever_blanker_parallel(weak, pwr, tables, noise_floor, limit_amp,
@@ -597,8 +552,13 @@ CLEAR_MAX_PW = 255      # the widest pulse whose reaches a tile's halos hold
 CLEAR_CLAMP = 1e4       # the clamp of runmax / noise floor
 CLEAR_MAX_S = 1 << 24   # float32 holds every position below it exactly
 # launches of csrc/blanker_clear.cu, made and recorded into CUDA graphs
-clear_count = cuda_build.LaunchCount()
-trace.count_launches("blanker_clear", clear_count)
+clear_count = cuda_build.launch_count("blanker_clear")
+# the C launcher's argument types, the stream last, and the kernel's
+# constants it must agree with
+CLEAR_ARGS = ((ctypes.c_void_p,) * 8 + (ctypes.c_longlong,) * 3
+              + (ctypes.c_float,) + (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
+CLEAR_CONSTANTS = (("lrt_blanker_clear_tile", CLEAR_TILE),
+                   ("lrt_blanker_clear_max_pw", CLEAR_MAX_PW))
 
 
 def clear_reach(pw: int) -> tuple[int, int]:
@@ -636,7 +596,8 @@ def _blanker_clear_reference(weak: torch.Tensor, pwr: torch.Tensor,
 
 
 def _check_clear(weak: torch.Tensor, pwr: torch.Tensor,
-                 noise_floor: torch.Tensor, pw: int) -> None:
+                 noise_floor: torch.Tensor, limit_amp: float,
+                 pw: int) -> None:
     """Refuse what :func:`blanker_clear` does not take: weak (S, C)
     complex64 with 1 <= S < CLEAR_MAX_S and C >= 1; pwr (S,) float32;
     noise_floor a 0-dim float32; 0 <= pw <= CLEAR_MAX_PW; one device.  A
@@ -660,29 +621,6 @@ def _check_clear(weak: torch.Tensor, pwr: torch.Tensor,
     if len(devices) != 1:
         raise ValueError(f"blanker_clear: tensors on different devices "
                          f"{sorted(map(str, devices))}")
-    # meta: the fake tensors of a trace, which reach only the fake
-    if weak.device.type not in ("cpu", "cuda", "meta"):
-        raise ValueError(f"blanker_clear: unsupported device {weak.device}")
-
-
-@functools.lru_cache(maxsize=1)
-def _clear_fn():
-    """The C launcher of csrc/blanker_clear.cu, built at first use."""
-    lib, _info = cuda_build.build("blanker_clear")
-    for name, want in (("lrt_blanker_clear_tile", CLEAR_TILE),
-                       ("lrt_blanker_clear_max_pw", CLEAR_MAX_PW)):
-        fn = getattr(lib, name)
-        fn.argtypes = []
-        fn.restype = ctypes.c_int
-        if fn() != want:
-            raise RuntimeError(f"blanker_clear: the kernel's {name} is "
-                               f"{fn()}, the wrapper's {want}")
-    fn = lib.lrt_blanker_clear
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 3
-                   + [ctypes.c_float] + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def _dense_streams(x: torch.Tensor) -> torch.Tensor:
@@ -706,16 +644,21 @@ def _clear_launch(weak: torch.Tensor, pwr: torch.Tensor,
     count = torch.empty(r, dtype=torch.int32, device=dev)
     local = torch.empty((r, s), dtype=torch.float32, device=dev)
     summ = torch.empty((r, tiles, 4), dtype=torch.int32, device=dev)
-    stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    cuda_build.launch(_clear_fn(), (
-        weak.data_ptr(), pwr.data_ptr(), noise_floor.data_ptr(),
-        wout.data_ptr(), pout.data_ptr(), count.data_ptr(), local.data_ptr(),
-        summ.data_ptr(), weak.stride(0), pwr.stride(0),
-        noise_floor.stride(0) if noise_floor.dim() else 0,
-        _f32(limit_amp * limit_amp), s, c, pw, r, stream), dev,
-        f"blanker_clear at ({r}, {s}, {c})")
-    clear_count.add()
+    cuda_build.launch(
+        cuda_build.bind("blanker_clear", "lrt_blanker_clear", CLEAR_ARGS,
+                        expect=CLEAR_CONSTANTS), (
+            weak.data_ptr(), pwr.data_ptr(), noise_floor.data_ptr(),
+            wout.data_ptr(), pout.data_ptr(), count.data_ptr(),
+            local.data_ptr(), summ.data_ptr(), weak.stride(0),
+            pwr.stride(0), noise_floor.stride(0) if noise_floor.dim() else 0,
+            _f32(limit_amp * limit_amp), s, c, pw, r), dev,
+        f"blanker_clear at ({r}, {s}, {c})", clear_count)
     return wout, pout, count
+
+
+_clear = cuda_build.Streams("blanker_clear", _check_clear,
+                            _blanker_clear_reference, _clear_launch,
+                            shared=(2,))
 
 
 @torch.library.custom_op("linrad_tpu_torch::blanker_clear", mutates_args=())
@@ -739,42 +682,20 @@ def blanker_clear(weak: torch.Tensor, pwr: torch.Tensor,
     on the card; on a CPU tensor the plain version
     :func:`_blanker_clear_reference`.  A PyTorch custom operator
     (``torch.ops.linrad_tpu_torch.blanker_clear``) with a rule for
-    ``torch.func.vmap``: R streams make one call (:func:`_blanker_clear_vmap`).
-    Its calls are counted in ``clear_count``."""
-    _check_clear(weak, pwr, noise_floor, pw)
-    if weak.device.type == "cpu":
-        return _blanker_clear_reference(weak, pwr, noise_floor, limit_amp,
-                                        pw)
-    w, p, n = _clear_launch(weak[None], pwr[None], noise_floor, limit_amp,
-                            pw)
-    return w[0], p[0], n[0]
+    ``torch.func.vmap``: R streams, each with its noise floor or one
+    shared, make one call (``_clear.vmap``).  Its calls are counted in
+    ``clear_count``."""
+    return _clear(weak, pwr, noise_floor, limit_amp, pw)
 
 
 @blanker_clear.register_fake
 def _blanker_clear_fake(weak, pwr, noise_floor, limit_amp, pw):
-    _check_clear(weak, pwr, noise_floor, pw)
+    _check_clear(weak, pwr, noise_floor, limit_amp, pw)
     return (weak.new_empty(weak.shape), pwr.new_empty(pwr.shape),
             pwr.new_empty((), dtype=torch.int32))
 
 
-@blanker_clear.register_vmap
-def _blanker_clear_vmap(info, in_dims, weak, pwr, noise_floor, limit_amp,
-                        pw):
-    """R streams, each with its noise floor or one shared: on the card one
-    call; on the CPU the plain version once per stream."""
-    r = info.batch_size
-    weak, pwr = (x.movedim(d, 0) if d is not None
-                 else x.expand((r,) + tuple(x.shape))
-                 for x, d in zip((weak, pwr), in_dims[:2]))
-    nf_dim = in_dims[2]
-    nf = noise_floor if nf_dim is None else noise_floor.movedim(nf_dim, 0)
-    floors = [nf] * r if nf_dim is None else list(nf)
-    _check_clear(weak[0], pwr[0], floors[0], pw)
-    if weak.device.type == "cpu":
-        outs = [_blanker_clear_reference(weak[i], pwr[i], floors[i],
-                                         limit_amp, pw) for i in range(r)]
-        return tuple(torch.stack(v) for v in zip(*outs)), (0, 0, 0)
-    return _clear_launch(weak, pwr, nf, limit_amp, pw), (0, 0, 0)
+blanker_clear.register_vmap(_clear.vmap)
 
 
 def despiked_mean(pwr: torch.Tensor) -> torch.Tensor:

@@ -29,7 +29,7 @@ import functools
 import numpy as np
 import torch
 
-from ..utils import cuda_build, trace
+from ..utils import cuda_build
 
 MIN_SIZE = 128
 MAX_SIZE = 4096
@@ -46,22 +46,8 @@ H100_SMS = 132
 MAX_BLOCKS_PER_SM = 4
 
 
-@functools.lru_cache(maxsize=1)
-def build() -> tuple[ctypes.CDLL, dict]:
-    """Compile (once per source version) and load the kernel library
-    (``utils/cuda_build.build``), with the C functions' argument types.
-
-    Returns (library, info) where info holds the library path, the build
-    seconds (0.0 when an earlier build of the same source was reused) and
-    the compiler's output (``-Xptxas -v``: registers, shared memory)."""
-    lib, info = cuda_build.build("fused_fft1")
-    fn = lib.lrt_fused_fft1
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.lrt_empty_launch.argtypes = [ctypes.c_void_p]
-    lib.lrt_empty_launch.restype = ctypes.c_int
-    return lib, info
+# the C launcher's argument types, the stream last
+FFT1_ARGS = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,)
 
 
 def radix_plan(n: int) -> tuple[int, ...]:
@@ -150,8 +136,7 @@ class _Launch:
     and the constant ctypes arguments (the plan among them)."""
 
     def __init__(self, device: torch.device, b: int, n: int, c: int):
-        lib, _ = build()
-        self.fn = lib.lrt_fused_fft1
+        self.fn = cuda_build.bind("fused_fft1", "lrt_fused_fft1", FFT1_ARGS)
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         plan = launch_plan(b, n, c, sms)
         self.twiddle = torch.from_numpy(twiddle_tables(n)).to(device)
@@ -204,9 +189,11 @@ def _check(frames: torch.Tensor, window: torch.Tensor,
 def fused_fft1_reference(frames: torch.Tensor, window: torch.Tensor,
                          filtercorr: torch.Tensor
                          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: window, FFT, calibration, power sum."""
+    """Plain PyTorch version: window, FFT, calibration, power sum.  The
+    spectrum is contiguous, as the kernel and the fake give it (on the CPU
+    ``torch.fft.fft`` along dim 1 leaves another layout)."""
     spec = torch.fft.fft(frames * window[None, :, None], dim=1)
-    spec = spec * filtercorr[None, :, :]
+    spec = (spec * filtercorr[None, :, :]).contiguous()
     return spec, (spec.abs() ** 2).sum(0)
 
 
@@ -225,10 +212,10 @@ def fused_fft1(frames: torch.Tensor, window: torch.Tensor,
     A PyTorch custom operator (``torch.ops.linrad_tpu_torch.fused_fft1``)
     with a rule for ``torch.func.vmap``: under vmap over R streams, frames
     (R, B, N, C) are folded into the channel axis, (B, N, R C), and one
-    launch serves every stream (see :func:`_fused_fft1_vmap`)."""
+    launch serves every stream (see :func:`_fused_fft1_vmap`).  Its
+    launches are counted in ``fused_fft1.launches`` and
+    ``fused_fft1.captured``."""
     _check(frames, window, filtercorr)
-    if frames.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"fused_fft1: unsupported device {frames.device}")
     return torch.ops.linrad_tpu_torch.fused_fft1(frames, window, filtercorr)
 
 
@@ -236,32 +223,30 @@ def fused_fft1(frames: torch.Tensor, window: torch.Tensor,
 def _fused_fft1_op(frames: torch.Tensor, window: torch.Tensor,
                    filtercorr: torch.Tensor
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    b, n, c = _check(frames, window, filtercorr)
-    if frames.device.type == "cpu":
-        return fused_fft1_reference(frames, window, filtercorr)
-    if frames.device.type != "cuda":
-        raise ValueError(f"fused_fft1: unsupported device {frames.device}")
+    _check(frames, window, filtercorr)
+    return cuda_build.on_device("fused_fft1", frames.device,
+                                fused_fft1_reference, _fused_fft1_card,
+                                frames, window, filtercorr)
+
+
+def _fused_fft1_card(frames: torch.Tensor, window: torch.Tensor,
+                     filtercorr: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the kernel on the frames' device."""
+    b, n, c = frames.shape
     if not (frames.is_contiguous() and window.is_contiguous()
             and filtercorr.is_contiguous()):
         raise ValueError("fused_fft1: inputs must be contiguous")
     dev = frames.device
     if (frames.data_ptr() | filtercorr.data_ptr() | window.data_ptr()) % 16:
         raise ValueError("fused_fft1: inputs must be 16-byte aligned")
-    # the current stream's handle without building a Stream object
-    stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    st = _launch(dev, stream, b, n, c)
+    st = _launch(dev, cuda_build.raw_stream(dev), b, n, c)
     spec = torch.empty_like(frames)
     psum = torch.empty((n, c), dtype=torch.float32, device=dev)
     args = (frames.data_ptr(), window.data_ptr(), filtercorr.data_ptr(),
-            st.twiddle_ptr, spec.data_ptr(), psum.data_ptr(), *st.tail,
-            stream)
-    cuda_build.launch(st.fn, args, dev, f"fused_fft1 at shape {(b, n, c)}")
-    if torch.cuda.is_current_stream_capturing():
-        # recorded into a CUDA graph, nothing launched: whoever replays the
-        # graph counts its launches
-        fused_fft1.captured += 1
-    else:
-        fused_fft1.launches += 1
+            st.twiddle_ptr, spec.data_ptr(), psum.data_ptr(), *st.tail)
+    cuda_build.launch(st.fn, args, dev, f"fused_fft1 at shape {(b, n, c)}",
+                      fused_fft1)
     return spec, psum
 
 
@@ -301,12 +286,10 @@ def _fused_fft1_vmap(info, in_dims, frames, window, filtercorr):
 def empty_launch(device: torch.device) -> None:
     """Launch the library's empty kernel on the device's current stream:
     the yardstick for what any kernel launch costs."""
-    lib, _ = build()
-    cuda_build.launch(lib.lrt_empty_launch,
-                      (torch.cuda.current_stream(device).cuda_stream,),
-                      torch.device(device), "fused_fft1's empty kernel")
+    cuda_build.launch(
+        cuda_build.bind("fused_fft1", "lrt_empty_launch",
+                        (ctypes.c_void_p,)), (),
+        torch.device(device), "fused_fft1's empty kernel", None)
 
 
-fused_fft1.launches = 0
-fused_fft1.captured = 0
-trace.count_launches("fused_fft1", fused_fft1)
+cuda_build.launch_count("fused_fft1", fused_fft1)

@@ -22,14 +22,13 @@ fleet of R receivers makes one launch.
 from __future__ import annotations
 
 import ctypes
-import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..geometry import Geometry
-from ..utils import cuda_build, trace
+from ..utils import cuda_build
 from ..utils.segments import segment_max, segment_min, segment_sum
 from .windows import make_window
 
@@ -201,8 +200,11 @@ def _sellim_taper_reference(lim: torch.Tensor,
 
 TAPER_TILE = 384        # the kernel's kTile: the bins a block writes
 # launches of csrc/sellim_taper.cu, made and recorded into CUDA graphs
-taper_count = cuda_build.LaunchCount()
-trace.count_launches("sellim_taper", taper_count)
+taper_count = cuda_build.launch_count("sellim_taper")
+# the C launcher's argument types, the stream last, and the kernel's tile
+TAPER_ARGS = ((ctypes.c_void_p,) * 4 + (ctypes.c_longlong,) * 2
+              + (ctypes.c_int,) * 2 + (ctypes.c_void_p,))
+TAPER_CONSTANTS = (("lrt_sellim_taper_tile", TAPER_TILE),)
 
 
 def taper_closed_form_holds(lim: torch.Tensor,
@@ -233,49 +235,32 @@ def _check_taper(lim: torch.Tensor, budget: torch.Tensor) -> None:
                          f"{tuple(budget.shape)} {budget.dtype}")
     if lim.device != budget.device:
         raise ValueError("sellim_taper: tensors on different devices")
-    # meta: the fake tensors of a trace, which reach only the fake
-    if lim.device.type not in ("cpu", "cuda", "meta"):
-        raise ValueError(f"sellim_taper: unsupported device {lim.device}")
-
-
-@functools.lru_cache(maxsize=1)
-def _taper_fn():
-    """The C launcher of csrc/sellim_taper.cu, built at first use."""
-    lib, _info = cuda_build.build("sellim_taper")
-    lib.lrt_sellim_taper_tile.argtypes = []
-    lib.lrt_sellim_taper_tile.restype = ctypes.c_int
-    tile = lib.lrt_sellim_taper_tile()
-    if tile != TAPER_TILE:
-        raise RuntimeError(f"sellim_taper: the kernel's tile is {tile}, "
-                           f"TAPER_TILE {TAPER_TILE}")
-    fn = lib.lrt_sellim_taper
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
-                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def _taper_launch(lim: torch.Tensor, budget: torch.Tensor,
                   paths: torch.Tensor | None = None) -> torch.Tensor:
-    """One launch for R streams: lim and budget (R, n), or (n,) for one
-    stream; a (n,) budget under a (R, n) lim serves every stream.  paths,
-    where given, is an int32 tensor of (R, tiles) that the kernel sets to
-    1 where a tile ran the window loop and 0 where it took the closed
-    form."""
+    """One launch for R streams: lim (R, n), budget (R, n) or (n,) for
+    every stream.  paths, where given, is an int32 tensor of (R, tiles)
+    that the kernel sets to 1 where a tile ran the window loop and 0 where
+    it took the closed form.  Returns the new lim (R, n)."""
     dev = lim.device
-    n = lim.shape[-1]
-    r = lim.shape[0] if lim.dim() == 2 else 1
+    r, n = lim.shape
     lim = lim.contiguous()
     budget = budget.contiguous()
     out = torch.empty((r, n), dtype=torch.float32, device=dev)
-    stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    cuda_build.launch(_taper_fn(), (
-        lim.data_ptr(), budget.data_ptr(), out.data_ptr(),
-        None if paths is None else paths.data_ptr(),
-        n if lim.dim() == 2 else 0, n if budget.dim() == 2 else 0, n, r,
-        stream), dev, f"sellim_taper at ({r}, {n})")
-    taper_count.add()
+    cuda_build.launch(
+        cuda_build.bind("sellim_taper", "lrt_sellim_taper", TAPER_ARGS,
+                        expect=TAPER_CONSTANTS), (
+            lim.data_ptr(), budget.data_ptr(), out.data_ptr(),
+            None if paths is None else paths.data_ptr(), n,
+            n if budget.dim() == 2 else 0, n, r), dev,
+        f"sellim_taper at ({r}, {n})", taper_count)
     return out
+
+
+_taper = cuda_build.Streams("sellim_taper", _check_taper,
+                            _sellim_taper_reference, _taper_launch,
+                            shared=(1,))
 
 
 def taper_paths(lim: torch.Tensor, budget: torch.Tensor
@@ -291,7 +276,7 @@ def taper_paths(lim: torch.Tensor, budget: torch.Tensor
     r = lim.shape[0] if lim.dim() == 2 else 1
     paths = torch.full((r, -(-lim.shape[-1] // TAPER_TILE)), -1,
                        dtype=torch.int32, device=lim.device)
-    out = _taper_launch(lim, budget, paths)
+    out = _taper_launch(lim.reshape(r, -1), budget, paths)
     return out if lim.dim() == 2 else out[0], paths
 
 
@@ -307,13 +292,10 @@ def sellim_taper(lim: torch.Tensor, budget: torch.Tensor) -> torch.Tensor:
     changed.
 
     A PyTorch custom operator (``torch.ops.linrad_tpu_torch.sellim_taper``)
-    with a rule for ``torch.func.vmap``: R streams make one launch, a grid
-    of tiles by streams (:func:`_sellim_taper_vmap`).  Its launches are
-    counted in ``taper_count``."""
-    _check_taper(lim, budget)
-    if lim.device.type == "cpu":
-        return _sellim_taper_reference(lim, budget)
-    return _taper_launch(lim, budget)[0]
+    with a rule for ``torch.func.vmap``: R streams, a budget each or one
+    shared, make one launch, a grid of tiles by streams (``_taper.vmap``).
+    Its launches are counted in ``taper_count``."""
+    return _taper(lim, budget)
 
 
 @sellim_taper.register_fake
@@ -322,21 +304,7 @@ def _sellim_taper_fake(lim, budget):
     return torch.empty_like(lim)
 
 
-@sellim_taper.register_vmap
-def _sellim_taper_vmap(info, in_dims, lim, budget):
-    """R streams: on the card one launch for all; on the CPU the plain
-    version once per stream."""
-    r = info.batch_size
-    l_dim, b_dim = in_dims
-    lim = lim.movedim(l_dim, 0) if l_dim is not None \
-        else lim.expand((r,) + tuple(lim.shape))
-    budget = budget.movedim(b_dim, 0) if b_dim is not None else budget
-    _check_taper(lim[0], budget[0] if b_dim is not None else budget)
-    if lim.device.type == "cpu":
-        return torch.stack([
-            _sellim_taper_reference(lim[i], budget[i] if b_dim is not None
-                                    else budget) for i in range(r)]), 0
-    return _taper_launch(lim, budget), 0
+sellim_taper.register_vmap(_taper.vmap)
 
 
 def liminfo_gains(liminfo: torch.Tensor

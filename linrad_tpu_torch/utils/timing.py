@@ -9,18 +9,6 @@ finished it and reports samples/s and the real-time factor, the numbers
 that replace the on-screen workload percentages; the stages' cost is
 the tracer's (``utils/trace.py``: a span per stage of the step, and a
 device time per stage of a graph captured with its device intervals on).
-
-As a script it times ``fused_fft1`` of this checkout, or of this
-checkout and another on the same card in turns (other, this, this,
-other), for comparing two versions of the kernel; with ``--step`` it
-times the graphed flagship step instead (``BatchRunner``, the replays
-alone), for comparing two versions of the step:
-
-    python3 linrad_tpu_torch/utils/timing.py [--step] [--other DIR]
-
-DIR holds another ``linrad_tpu_torch`` package; each checkout is loaded
-in a process of its own, since both packages have the same name.  Every
-line printed carries the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -122,102 +110,3 @@ def graph_ms(fn, calls: int, replays: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (calls * replays)
-
-
-SHAPES = [(64, 2048, 1), (64, 4096, 2), (2048, 2048, 1)]
-
-
-def _time_checkout(root: str) -> None:
-    """Time fused_fft1 of the package under root at SHAPES; one line per
-    shape."""
-    import subprocess
-    import sys
-
-    import numpy as np
-    sys.path.insert(0, root)
-    from linrad_tpu_torch.ops.fused_fft1 import fused_fft1
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    for b, n, c in SHAPES:
-        rng = np.random.default_rng(7)
-        frames = torch.from_numpy(
-            (rng.normal(size=(b, n, c)) + 1j * rng.normal(size=(b, n, c))
-             ).astype(np.complex64)).cuda()
-        window = torch.from_numpy((np.sin(np.pi * (np.arange(n) + 0.5) / n)
-                                   ** 2).astype(np.float32)).cuda()
-        fc = torch.from_numpy(
-            ((rng.normal(size=(n, c)) + 1j * rng.normal(size=(n, c))) * 0.1
-             ).astype(np.complex64)).cuda()
-
-        def kernel():
-            return fused_fft1(frames, window, fc)
-
-        reps = 50 if b * n <= 1 << 17 else 10
-        for _ in range(3):
-            kernel()
-        eager = [cuda_ms(kernel, reps) for _ in range(4)]
-        device = [graph_ms(kernel, reps, 20 if reps == 50 else 5)
-                  for _ in range(2)]
-        print(f"{root}: fused_fft1 {(b, n, c)}: device_ms "
-              f"{min(device):.5f}-{max(device):.5f}, eager ms "
-              f"{min(eager):.4f}-{max(eager):.4f} [{smi}]", flush=True)
-
-
-def _time_step(root: str) -> None:
-    """Time the flagship step of the package under root as a CUDA graph:
-    ms per step of BatchRunner replays (calls of 8) on noise with 40
-    impulses of 3000 a step, after one call of warm-up."""
-    import subprocess
-    import sys
-
-    import numpy as np
-    sys.path.insert(0, root)
-    from linrad_tpu_torch import derive_geometry, flagship_params
-    from linrad_tpu_torch.pipeline.batch import BatchRunner
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    p = flagship_params(fft1_variant="pallas")
-    s = derive_geometry(p).samples_per_step
-    rng = np.random.default_rng(2)
-    iq = 10.0 * (rng.normal(size=8 * s) + 1j * rng.normal(size=8 * s))
-    pos = rng.integers(0, iq.size, 8 * 40)
-    iq[pos] += 3000.0 * np.exp(2j * np.pi * rng.uniform(size=pos.size))
-    br = BatchRunner(p, k_steps=8)
-    br.tune(12_345.6)
-    br.process(iq.astype(np.complex64))
-    ms = [cuda_ms(br._run_call, 1) / 8 for _ in range(6)]
-    print(f"{root}: graphed flagship step, replays alone: ms per step "
-          f"{min(ms):.3f}-{max(ms):.3f} over 6 calls of 8 [{smi}]",
-          flush=True)
-
-
-def main() -> None:
-    import argparse
-    import subprocess
-    import sys
-    from pathlib import Path
-    here = str(Path(__file__).resolve().parents[2])
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[1])
-    ap.add_argument("--other", default=None)
-    ap.add_argument("--step", action="store_true")
-    ap.add_argument("--one", default=None, help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    if args.one:
-        (_time_step if args.step else _time_checkout)(args.one)
-        return
-    if not torch.cuda.is_available():
-        raise SystemExit("timing: torch.cuda.is_available() is False")
-    roots = [here] if args.other is None else [
-        args.other, here, here, args.other]
-    step = ["--step"] if args.step else []
-    for root in roots:
-        subprocess.run([sys.executable, __file__, *step, "--one", root],
-                       check=True)
-
-
-if __name__ == "__main__":
-    main()

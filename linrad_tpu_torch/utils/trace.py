@@ -27,7 +27,8 @@ per-thread shares of menu.c:914-957).  The port's counterpart:
   and ``structure_switches``, a receiver's replays of another tuning
   structure's graph than the one it replayed before (the AFC's lock).
   :func:`report` also reads the counters kept elsewhere: the controls'
-  ``host_reads``, the graphs' ``replays`` and the hand kernels' launches.
+  ``host_reads``, the graphs' ``replays`` and the hand kernels' launches
+  (``utils/cuda_build.COUNTS``).
 - **Device intervals** (after :func:`enable`, on a CUDA device): a
   timing-event pair around each graph replay, each block's copy in and
   the other device work a span names (``span(..., device=...)``), read
@@ -64,6 +65,8 @@ import numpy as np
 import torch
 import torch.autograd.profiler as _profiler
 
+from . import cuda_build
+
 RING = 1 << 16                 # span records, and device intervals, kept
 REANCHOR_NS = 10 * 10 ** 9     # an anchor older than this is taken anew
 
@@ -88,7 +91,6 @@ _anchors: dict = {}              # device index -> (event, host ns)
 _free: dict = {}                 # device index -> [timing events]
 _capture = None                  # a list while a GraphedStep captures
 _watched: dict = {}              # report's name -> (attribute, objects)
-_launches: dict = {}             # kernel -> its launch count
 _missed = [0]                    # stage readings lost to a later replay
 
 
@@ -258,12 +260,6 @@ def watch(name: str, obj, attr: str) -> None:
     summed over such objects under ``name`` (a graph's ``replays``, a
     control's ``host_reads``)."""
     _watched.setdefault(name, (attr, weakref.WeakSet()))[1].add(obj)
-
-
-def count_launches(kernel: str, count) -> None:
-    """Let :func:`report` read a kernel's launch count (anything with
-    ``launches`` and ``captured``); its module registers it as it loads."""
-    _launches[kernel] = count
 
 
 def next_id() -> int:
@@ -554,7 +550,7 @@ def _watched_counters() -> dict:
     out = {name: sum(getattr(o, attr) for o in list(objs))
            for name, (attr, objs) in _watched.items()}
     out["launches"] = {k: [c.launches, c.captured]
-                       for k, c in _launches.items()}
+                       for k, c in cuda_build.COUNTS.items()}
     return out
 
 

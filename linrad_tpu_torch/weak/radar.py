@@ -50,7 +50,6 @@ the display updates' windows) and read back (``d2h_bytes``), and
 from __future__ import annotations
 
 import ctypes
-import functools
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -91,8 +90,10 @@ class RadarParams:
 
 STATS_MAX_N = 1 << 30   # bins a frame: the kernel's positions are int32
 # launches of csrc/radar_stats.cu, made and recorded into CUDA graphs
-stats_count = cuda_build.LaunchCount()
-trace.count_launches("radar_stats", stats_count)
+stats_count = cuda_build.launch_count("radar_stats")
+# the C launcher's argument types, the stream last
+STATS_ARGS = ((ctypes.c_void_p,) * 4 + (ctypes.c_longlong,)
+              + (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
 
 
 def _frame_pulse_stats_reference(power: torch.Tensor, walk_steps: int = 32
@@ -130,9 +131,8 @@ def _frame_pulse_stats_reference(power: torch.Tensor, walk_steps: int = 32
 
 def _check_stats(power: torch.Tensor, walk_steps: int) -> None:
     """Refuse what :func:`frame_pulse_stats` does not take: power (F, n)
-    float32 with F >= 1 and 1 <= n < STATS_MAX_N, on the CPU or a CUDA
-    device; walk_steps >= 0.  Rows that are not dense are copied to rows
-    that are before a launch."""
+    float32 with F >= 1 and 1 <= n < STATS_MAX_N; walk_steps >= 0.  Rows
+    that are not dense are copied to rows that are before a launch."""
     if power.dim() != 2 or power.dtype != torch.float32 \
             or power.shape[0] < 1 or not 1 <= power.shape[1] < STATS_MAX_N:
         raise ValueError(f"frame_pulse_stats: power must be (F, n) float32 "
@@ -140,41 +140,33 @@ def _check_stats(power: torch.Tensor, walk_steps: int) -> None:
                          f"{tuple(power.shape)} {power.dtype}")
     if walk_steps < 0:
         raise ValueError(f"frame_pulse_stats: walk_steps {walk_steps} < 0")
-    # meta: the fake tensors of a trace, which reach only the fake
-    if power.device.type not in ("cpu", "cuda", "meta"):
-        raise ValueError(f"frame_pulse_stats: unsupported device "
-                         f"{power.device}")
-
-
-@functools.lru_cache(maxsize=1)
-def _stats_fn():
-    """The C launcher of csrc/radar_stats.cu, built at first use."""
-    lib, _info = cuda_build.build("radar_stats")
-    fn = lib.lrt_radar_stats
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def _stats_launch(power: torch.Tensor, walk_steps: int):
-    """One launch over the rows of power (rows, n), each row dense, rows
-    any stride apart.  A walk takes at most n - 3 steps, so the kernel is
-    handed min(walk_steps, n)."""
+    """One launch for R streams of F frames, power (R, F, n), over its R F
+    rows, each row dense, rows any stride apart.  A walk takes at most
+    n - 3 steps, so the kernel is handed min(walk_steps, n).  Returns
+    (peak_bin, ston, noise_floor), each (R, F)."""
+    r, f, n = power.shape
+    power = power.reshape(r * f, n)
     if not power[0].is_contiguous():
         power = power.contiguous()
-    rows, n = power.shape
+    rows = r * f
     dev = power.device
     k = torch.empty(rows, dtype=torch.int64, device=dev)
     ston = torch.empty(rows, dtype=torch.float32, device=dev)
     floor = torch.empty(rows, dtype=torch.float32, device=dev)
-    stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    cuda_build.launch(_stats_fn(), (
-        power.data_ptr(), k.data_ptr(), ston.data_ptr(), floor.data_ptr(),
-        power.stride(0), rows, n, min(walk_steps, n), stream), dev,
-        f"frame_pulse_stats at ({rows}, {n})")
-    stats_count.add()
-    return k, ston, floor
+    cuda_build.launch(
+        cuda_build.bind("radar_stats", "lrt_radar_stats", STATS_ARGS), (
+            power.data_ptr(), k.data_ptr(), ston.data_ptr(),
+            floor.data_ptr(), power.stride(0), rows, n,
+            min(walk_steps, n)), dev,
+        f"frame_pulse_stats at ({rows}, {n})", stats_count)
+    return tuple(t.reshape(r, f) for t in (k, ston, floor))
+
+
+_stats = cuda_build.Streams("frame_pulse_stats", _check_stats,
+                            _frame_pulse_stats_reference, _stats_launch)
 
 
 def frame_pulse_stats(power: torch.Tensor, walk_steps: int = 32
@@ -199,7 +191,8 @@ def frame_pulse_stats(power: torch.Tensor, walk_steps: int = 32
     Through the PyTorch custom operator
     ``torch.ops.linrad_tpu_torch.frame_pulse_stats``, with a rule for
     ``torch.func.vmap``: R streams of F frames make one launch over R F
-    rows.  Its launches are counted in ``stats_count``."""
+    rows (``_stats.vmap``).  Its launches are counted in
+    ``stats_count``."""
     return torch.ops.linrad_tpu_torch.frame_pulse_stats(power, walk_steps)
 
 
@@ -208,10 +201,7 @@ def frame_pulse_stats(power: torch.Tensor, walk_steps: int = 32
 def _frame_pulse_stats_op(power: torch.Tensor, walk_steps: int
                           ) -> tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
-    _check_stats(power, walk_steps)
-    if power.device.type == "cpu":
-        return _frame_pulse_stats_reference(power, walk_steps)
-    return _stats_launch(power, walk_steps)
+    return _stats(power, walk_steps)
 
 
 @_frame_pulse_stats_op.register_fake
@@ -222,18 +212,7 @@ def _frame_pulse_stats_fake(power, walk_steps):
             power.new_empty(f))
 
 
-@_frame_pulse_stats_op.register_vmap
-def _frame_pulse_stats_vmap(info, in_dims, power, walk_steps):
-    """R streams of (F, n): on the card one launch over the R F rows; on
-    the CPU the plain version once per stream."""
-    power = power.movedim(in_dims[0], 0)
-    _check_stats(power[0], walk_steps)
-    r, f, n = power.shape
-    if power.device.type == "cpu":
-        outs = [_frame_pulse_stats_reference(p, walk_steps) for p in power]
-        return tuple(torch.stack(v) for v in zip(*outs)), (0, 0, 0)
-    out = _stats_launch(power.reshape(r * f, n), walk_steps)
-    return tuple(t.reshape(r, f) for t in out), (0, 0, 0)
+_frame_pulse_stats_op.register_vmap(_stats.vmap)
 
 
 def _accumulate(avg: torch.Tensor, frames: torch.Tensor, start: int,

@@ -315,17 +315,6 @@ def test_stupid_blanker_is_the_operator():
     assert (bl.clear_count.launches, bl.clear_count.captured) == before
 
 
-def test_trace_report_lists_blanker_clear():
-    """The tracer's report reads the operator's launch count beside the
-    other hand kernels'."""
-    from linrad_tpu_torch.ops import sellim  # noqa: F401  (registers)
-    from linrad_tpu_torch.utils import trace
-    launches = trace.report()["counters"]["launches"]
-    assert launches["blanker_clear"] == [bl.clear_count.launches,
-                                         bl.clear_count.captured]
-    assert {"blanker_fits", "sellim_taper"} <= set(launches)
-
-
 # ---- on the card ------------------------------------------------------
 
 def _card_same(args: tuple) -> None:

@@ -47,8 +47,10 @@ from linrad_tpu.ops import sellim as jsellim
 from linrad_tpu_torch import convert
 from linrad_tpu_torch import derive_geometry as t_derive_geometry
 from linrad_tpu_torch.ops import blanker as tbl
+from linrad_tpu_torch.ops import fused_fft1 as tff
 from linrad_tpu_torch.ops import sellim as tsellim
 from linrad_tpu_torch.utils import cuda_build
+from linrad_tpu_torch.weak import radar as trd
 
 FP32 = 1e-5
 CPU = "cpu"
@@ -862,28 +864,36 @@ def test_blanker_clear_refuses(bad):
         tbl.blanker_clear(weak, pwr, nf, limit, pw)
 
 
-@pytest.mark.parametrize("name", ["blanker_fits", "sellim_taper",
-                                  "blanker_clear"])
+@pytest.mark.parametrize("name", cuda_build.KERNELS)
 def test_op_schema_and_fake(name):
-    """Each custom operator passes torch.library.opcheck's schema and
-    fake-tensor checks (the fake gives the shapes a trace sees, and
-    refuses what the operator refuses); on the CPU no kernel launch is
+    """Each hand kernel's custom operator passes torch.library.opcheck's
+    schema and fake-tensor checks (the fake gives the shapes a trace sees,
+    and refuses what the operator refuses); on the CPU no kernel launch is
     counted."""
     if name == "blanker_fits":
         weak, pwr, _ = _light_input("two-channel")
         args, lead = _fits_args(weak, pwr)
-        op, args, count = tbl.blanker_fits, (*args, PW, 4, lead, S), \
-            tbl.fits_count
+        op, args = tbl.blanker_fits, (*args, PW, 4, lead, S)
     elif name == "blanker_clear":
-        op, args, count = tbl.blanker_clear, cs.clear_edge_args(
-            "long-run", CPU), tbl.clear_count
+        op, args = tbl.blanker_clear, cs.clear_edge_args("long-run", CPU)
+    elif name == "fused_fft1":
+        rng = np.random.default_rng(5)
+        frames = rng.normal(size=(16, 512, 2)) \
+            + 1j * rng.normal(size=(16, 512, 2))
+        op, args = tff._fused_fft1_op, (
+            _t(frames.astype(np.complex64)),
+            _t(np.hanning(512).astype(np.float32)),
+            _t(np.ones((512, 2), np.complex64)))
+    elif name == "radar_stats":
+        op, args = trd._frame_pulse_stats_op, (
+            _t(cs.stats_case("spike", 16, 2048)), 32)
     else:
         n = GEO.fft1_size
         spectrum = _carrier_spectrum(np.random.default_rng(n + 2), n, 0)
         (lim, budget), = _taper_inputs(
             FLAGSHIP, [(spectrum, n // 8, n // 8 + 6, None, None)])
-        op, args, count = tsellim.sellim_taper, (lim, budget), \
-            tsellim.taper_count
+        op, args = tsellim.sellim_taper, (lim, budget)
+    count = cuda_build.COUNTS[name]
     before = (count.launches, count.captured)
     checks = ("test_schema", "test_faketensor")
     assert torch.library.opcheck(op, args, test_utils=checks) == dict.fromkeys(
