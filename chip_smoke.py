@@ -6,9 +6,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device   require CUDA, print the card, its power limit, the torch and
             CUDA versions; turn TF32 off for matmul and cuDNN.
-2. build    build the five kernels of linrad_tpu_torch/csrc/ (the fused
+2. build    build the six kernels of linrad_tpu_torch/csrc/ (the fused
             fft1, the blanker's fits, sellim's taper, the stupid blanker,
-            the radar front's statistics)
+            the radar front's statistics, sellim's liminfo update)
             with nvcc (sm_90a),
             one nvcc each, all at once, and print the build seconds and
             what ptxas says of registers and spills.
@@ -76,7 +76,22 @@ Phases, in order; any failure raises and the script exits non-zero:
             plain version's, floor and S/N within 1e-5 of it and the floor
             within 1e-5 of the mean outside the walks' ends recomputed in
             float64, the vmap call one launch bit-equal to separate calls;
-            its ptxas lines.  Two runs
+            its ptxas lines;
+            sellim_update (update_liminfo's front and back kernels around
+            the taper) on the arguments of eager flagship (2,048 bins) and
+            EME (4,096, two channels summed) steps, on sixteen crafted
+            cases (UPDATE_EDGE_CASES: no strong bin, one, runs on the
+            band's ends and across DC bin 0, +inf power, maxlevel 0, a
+            passband over a segment, an old state of gains and counters,
+            NaN power, real input, ties, long runs, every bin strong, 20
+            groups, n 4,096 to 16,384) and under vmap over 8 flagship
+            streams and over 8 crafted ones (a passband each, one shared):
+            liminfo and liminfo_wait bit-equal to the plain version's, the
+            front kernel's taper arguments bit-equal to the plain
+            version's, its carrier threshold's gap printed, one launch of
+            each kernel under vmap; first a probe that PyTorch's CUDA sums
+            and means of rows of 3, 20 and 32 take the front kernel's
+            order; its ptxas lines.  Two runs
             bit-identical, a replay from a CUDA graph bit-equal to the
             eager call.  Per case
             device_ms (graph replay), eager ms, the launch floor, bound_ms
@@ -608,7 +623,8 @@ def phase_kernel(dev: dict) -> dict:
 LOOP_KERNELS = (("blanker_fits", "linrad_tpu/ops/blanker.py:322"),
                 ("sellim_taper", "linrad_tpu/ops/sellim.py:150"),
                 ("blanker_clear", "linrad_tpu/ops/blanker.py:449"),
-                ("radar_stats", "linrad_tpu/weak/radar.py:84"))
+                ("radar_stats", "linrad_tpu/weak/radar.py:84"),
+                ("sellim_update", "linrad_tpu/ops/sellim.py:92"))
 LOOP_MAIN_CASE = {"radar_stats": "radar"}
 LOOP_FITS_TOL = 1e-5     # weak and pwr against the plain version: max_rel
 LOOP_TAPER_TOL = 1e-6    # the tapered gains: max_rel; the signs exact
@@ -632,7 +648,8 @@ def loop_counts() -> dict:
     from linrad_tpu_torch.ops import blanker as bl
     from linrad_tpu_torch.ops import sellim as sl
     return {"blanker_fits": bl.fits_count, "sellim_taper": sl.taper_count,
-            "blanker_clear": bl.clear_count}
+            "blanker_clear": bl.clear_count,
+            "sellim_update": sl.update_count}
 
 
 def vmap_one_launch(kernel: str, run, each=None) -> None:
@@ -676,20 +693,44 @@ def with_loop_references(run, fits=None):
     stage functions), or the fits by ``fits`` where given."""
     from linrad_tpu_torch.ops import blanker as bl
     from linrad_tpu_torch.ops import sellim as sl
-    saved = bl.blanker_fits, sl.sellim_taper, bl.blanker_clear
+    saved = (bl.blanker_fits, sl.sellim_taper, bl.blanker_clear,
+             sl.sellim_update)
     bl.blanker_fits = fits or bl._blanker_fits_reference
     sl.sellim_taper = sl._sellim_taper_reference
     bl.blanker_clear = bl._blanker_clear_reference
+    sl.sellim_update = sl._update_liminfo_reference
     try:
         return run()
     finally:
-        bl.blanker_fits, sl.sellim_taper, bl.blanker_clear = saved
+        (bl.blanker_fits, sl.sellim_taper, bl.blanker_clear,
+         sl.sellim_update) = saved
+
+
+def plain_updates(run) -> list:
+    """The arguments of every sellim_update call while ``run()`` runs,
+    each call going to the plain version instead (which calls
+    sellim_taper: the kernels' path calls the taper's launch itself)."""
+    from linrad_tpu_torch.ops import sellim as sl
+    real, seen = sl.sellim_update, []
+
+    def plain(*args):
+        seen.append(args)
+        return sl._update_liminfo_reference(*args)
+
+    sl.sellim_update = plain
+    try:
+        run()
+    finally:
+        sl.sellim_update = real
+    return seen
 
 
 def loop_args(p, iq: np.ndarray, tune_hz: float, steps: int,
               device="cuda") -> tuple:
-    """The arguments of blanker_fits, of sellim_taper and of blanker_clear
-    in each of ``steps`` eager steps of a Receiver of p on the card."""
+    """The arguments of blanker_fits, of sellim_taper, of blanker_clear
+    and of sellim_update in each of ``steps`` eager steps of a Receiver of
+    p on the card (the update through its plain version, so that the
+    taper's arguments are the pipeline's)."""
     from linrad_tpu_torch.ops import blanker as bl
     from linrad_tpu_torch.ops import sellim as sl
     from linrad_tpu_torch.pipeline.receiver import Receiver
@@ -705,8 +746,10 @@ def loop_args(p, iq: np.ndarray, tune_hz: float, steps: int,
     def run_taper():
         taper.extend(record_calls(sl, "sellim_taper", run))
 
-    fits = record_calls(bl, "blanker_fits", run_taper)
-    return fits, taper, clear
+    fits = []
+    updates = plain_updates(lambda: fits.extend(
+        record_calls(bl, "blanker_fits", run_taper)))
+    return fits, taper, clear, updates
 
 
 def valid_fits(args: tuple) -> int:
@@ -1276,8 +1319,11 @@ def phase_taper(dev: dict, floor: float | None = None,
         gt = derive_geometry(pt)
         n = gt.fft1_size
         spec = torch.from_numpy(taper_spectrum(n, n)).cuda()
-        args = record_calls(sl, "sellim_taper", lambda: sl.update_liminfo(
-            gt, sl.SellimState.create(gt, "cuda"), spec, 8.0, ston=30.0))
+        args = []
+        plain_updates(lambda: args.extend(record_calls(
+            sl, "sellim_taper", lambda: sl.update_liminfo(
+                gt, sl.SellimState.create(gt, "cuda"), spec, 8.0,
+                ston=30.0))))
         inputs[n] = args[0][:2]
         # the plain version's device time hardly depends on n (a fixed
         # count of launches): taken at the largest size only
@@ -1747,6 +1793,321 @@ def phase_stats(dev: dict, floor: float | None = None) -> dict:
     return rep
 
 
+# Crafted liminfo updates for sellim_update (update_liminfo's two kernels
+# around the taper), held against the plain version here on the card and,
+# through a numpy model of the kernels, on the CPU
+# (tests/test_torch_sellim_update.py): chi-square noise around a power of
+# 1,000 with carriers of 1e9 to 1e12 over a limit of 1e8 (in band order:
+# bin n/2 first for IQ), and per case no strong bin, one strong bin, strong
+# runs on the band's first and last bins and across the IQ roll's seam
+# (DC bin 0), a +inf power bin and a limit of 0 (maxlevel 0: every bin
+# strong at gain 0; both the taper's window loop), a passband over a
+# segment, an old state of gains, carriers and counters (smoothing, the
+# release cap, counters counting down), NaN power, real input (no roll),
+# ties of power, runs and skirts longer than a thread's chunk, every bin
+# strong, 20 groups (the floor's sums over lanes holding two means), and n
+# 4,096, 8,192 and 16,384.
+UPDATE_EDGE_CASES = ("quiet", "one-strong", "band-edges", "inf",
+                     "maxlevel-0", "passband", "history", "nan", "real",
+                     "ties", "long-runs", "all-strong", "groups-20",
+                     "n4096", "n8192", "n16384")
+UPDATE_LIMIT = 1e8
+UPDATE_WAIT_N = 7
+# eight of them at n 2,048 as a fleet's streams under vmap
+UPDATE_VMAP_CASES = ("quiet", "one-strong", "band-edges", "inf",
+                     "passband", "history", "nan", "ties")
+
+
+def update_edge_case(name: str) -> dict:
+    """One crafted update: ``p`` (n,) float32 power, ``lim`` and ``wait``
+    the old state (DC-at-0 order), ``sel`` (lo, hi) or None, and the
+    operator's constants ``limit``, ``ston``, ``half``, ``wait_n`` and
+    ``groups``."""
+    rng = np.random.default_rng(300 + UPDATE_EDGE_CASES.index(name))
+    n = {"groups-20": 2560, "n4096": 4096, "n8192": 8192,
+         "n16384": 16384}.get(name, 2048)
+    half = 0 if name == "real" else n // 2
+    k = np.arange(n)
+    band = 1e3 * rng.chisquare(4, size=n) / 4
+
+    def carrier(centre: float, height: float, width: float) -> None:
+        band[:] += height * np.exp(-0.5 * ((k - centre) / width) ** 2)
+
+    if name not in ("quiet", "one-strong"):
+        for _ in range(n // 400):
+            carrier(rng.uniform(10, n - 10), 10 ** rng.uniform(9, 12),
+                    rng.uniform(0.5, 3.0))
+    lim = np.zeros(n, np.float32)
+    wait = np.zeros(n, np.int32)
+    sel, limit, groups = None, UPDATE_LIMIT, 32
+    if name == "one-strong":
+        band[777] = 1e10
+        sel = (100, 120)
+    elif name == "band-edges":
+        band[:4] += 5e10
+        band[-4:] += 3e11
+        carrier(n // 2, 1e12, 2.0)      # DC bin 0 at its centre for IQ
+        carrier(n // 2 + 40.5, 2e9, 0.6)
+    elif name == "inf":
+        centre = int(rng.integers(200, n - 200))
+        carrier(centre, 1e11, 1.5)
+        band[centre] = np.inf
+    elif name == "maxlevel-0":
+        limit = 0.0
+    elif name == "passband":
+        carrier(1000, 1e11, 2.0)
+        sel = ((1000 - 6 - half) % n, (1000 + 6 - half) % n)
+    elif name == "history":
+        u = rng.uniform(size=n)
+        lim = np.where(u < 0.2, -1.0, np.where(
+            u < 0.5, 10 ** rng.uniform(-2.5, 0.5, size=n), 0.0))
+        lim = lim.astype(np.float32)
+        wait = rng.integers(0, 40, size=n).astype(np.int32)
+        for centre in (300.0, 1300.0):   # old gains near the new ones
+            carrier(centre, 1e11, 2.0)
+            lim[(int(centre) - 8 - half) % n:(int(centre) + 8 - half) % n] \
+                = 0.03
+        sel = (1500, 1530)
+    elif name == "nan":
+        band[50] = np.nan
+        centre = int(rng.integers(200, n - 200))
+        carrier(centre, 1e11, 2.0)
+        band[centre + 2] = np.nan
+    elif name == "real":
+        band[1] += 1e11
+        band[n - 2] += 1e11
+    elif name == "ties":
+        band = np.round(band / 500.0) * 500.0 + 500.0
+        band[300:340] = 5e10
+        band[900:902] = 2e10
+    elif name == "long-runs":
+        carrier(700, 1e12, 120.0)
+        carrier(1500, 1e11, 40.0)
+    elif name == "all-strong":
+        limit = 1e-3
+    elif name == "groups-20":
+        groups = 20
+    p = np.roll(band, -half).astype(np.float32)
+    return {"p": p, "lim": lim, "wait": wait, "sel": sel,
+            "limit": float(np.float32(limit)), "ston": 30.0, "half": half,
+            "wait_n": UPDATE_WAIT_N, "groups": groups}
+
+
+def update_edge_args(name: str, device="cuda") -> tuple:
+    """sellim_update's arguments for one crafted case on ``device``."""
+    c = update_edge_case(name)
+    sel = (None, None) if c["sel"] is None else tuple(
+        torch.tensor(v, dtype=torch.int64, device=device) for v in c["sel"])
+    return (torch.from_numpy(c["p"]).to(device),
+            torch.from_numpy(c["lim"]).to(device),
+            torch.from_numpy(c["wait"]).to(device), *sel, c["limit"],
+            c["ston"], c["half"], c["wait_n"], c["groups"])
+
+
+def card_floor_thr(args: tuple) -> torch.Tensor:
+    """The plain version's carrier threshold for sellim_update's
+    arguments, by its own operations (step 5) on the args' device."""
+    p, *_rest = args
+    *_, ston, half, _wait_n, groups = args
+    p = torch.roll(torch.clamp(p, min=1e-30), half)
+    n = p.shape[0]
+    small3 = torch.topk(p.reshape(groups, n // groups), 3, dim=1,
+                        largest=False, sorted=True).values
+    gmin = small3.mean(1)
+    sel = gmin < 2.0 * gmin.mean()
+    floor = (torch.where(sel, gmin, 0.0).sum()
+             / torch.clamp(sel.sum(), min=1))
+    return floor * ston
+
+
+def cuda_row_sum(g: np.ndarray) -> np.float32:
+    """PyTorch's CUDA sum of a row of G <= 32 float32 values, as the front
+    kernel takes it: lane x of bw = 2^floor(log2 G) holds x and x + bw,
+    then shfl_down at offsets bw/2, ..., 1."""
+    f32 = np.float32
+    bw = 1 << (len(g).bit_length() - 1)
+    v = [f32(0) + f32(g[x]) for x in range(bw)]
+    for x in range(len(g) - bw):
+        v[x] = f32(v[x] + f32(g[x + bw]))
+    while len(v) > 1:
+        h = len(v) // 2
+        v = [f32(v[x] + v[x + h]) for x in range(h)]
+    return v[0]
+
+
+def mean_order_probe(dev: dict) -> None:
+    """The front kernel's premise: PyTorch's CUDA sum and mean of a
+    float32 row of 3, 20 and 32 take ``cuda_row_sum``'s order, the mean
+    then times the float of rows / elements.  Random rows, each held."""
+    rng = np.random.default_rng(12)
+    seen = []
+    for g in (3, 20, 32):
+        x = (rng.uniform(1.0, 2.0, size=(256, g))
+             * 2.0 ** rng.integers(-12, 12, size=(256, g))).astype(np.float32)
+        t = torch.from_numpy(x).cuda()
+        want = np.array([cuda_row_sum(r) for r in x], np.float32)
+        rows = np.float32(256) / np.float32(256 * g)
+        same = (int((t.sum(1).cpu().numpy() == want).sum()),
+                int((t.mean(1).cpu().numpy() == want * rows).sum()),
+                int((torch.stack([r.clone().sum() for r in t]).cpu().numpy()
+                     == want).sum()))
+        seen.append(f"rows of {g}: row sums {same[0]}, row means {same[1]}, "
+                    f"sums of one row {same[2]} of 256")
+        if min(same) < 256:
+            raise AssertionError(f"sellim_update: PyTorch's CUDA reduction "
+                                 f"of rows of {g} is not the front kernel's "
+                                 f"order: {same}")
+    print(f"loops sellim_update probe: PyTorch's CUDA sums and means in the "
+          f"front kernel's order: " + "; ".join(seen) + f" [{dev['smi']}]",
+          flush=True)
+
+
+def compare_update(got, want) -> tuple[float, str]:
+    """sellim_update's (liminfo, liminfo_wait) against the plain version's:
+    bit for bit."""
+    (kl, kw), (rl, rw) = got, want
+    if not torch.equal(kw, rw):
+        raise AssertionError(f"sellim_update: liminfo_wait differs in "
+                             f"{int((kw != rw).sum())} bins")
+    if not torch.equal(torch.sign(kl), torch.sign(rl)):
+        raise AssertionError(f"sellim_update: the sign pattern differs in "
+                             f"{int((torch.sign(kl) != torch.sign(rl)).sum())}"
+                             f" bins")
+    if not same_bits(kl, rl):
+        raise AssertionError(f"sellim_update: liminfo not bit-equal, "
+                             f"max_rel {max_rel(kl, rl):.3e}")
+    return 0.0, (f"liminfo and liminfo_wait bit-equal, "
+                 f"{int((kl > 0).sum())} limited, "
+                 f"{int((kl < 0).sum())} to the strong channel")
+
+
+def update_case(dev: dict, label: str, args: tuple, floor: float,
+                plain_device: bool = True, main: bool = False,
+                in_dims: tuple | None = None) -> dict:
+    """sellim_update on one stream's arguments, or on R streams' stacked
+    under torch.func.vmap (``in_dims``: 0 for a stacked argument, None for
+    one that serves every stream): against the plain version on the card,
+    with the front kernel's taper arguments and threshold beside the plain
+    version's; under vmap one launch of each kernel."""
+    from linrad_tpu_torch.ops import sellim as sl
+    const = args[5:]
+    if in_dims is None:
+        kernel = lambda: sl.sellim_update(*args)
+        streams = [args]
+    else:
+        kernel = lambda: torch.func.vmap(sl.sellim_update,
+                                         in_dims=in_dims)(*args)
+        r = args[0].shape[0]
+        streams = [tuple(a if d is None else a[j]
+                         for a, d in zip(args, in_dims)) for j in range(r)]
+        counts = (sl.update_count.launches, sl.taper_count.launches)
+        each = [sl.sellim_update(*a) for a in streams]
+        got = kernel()
+        if (sl.update_count.launches - counts[0] != 2 * len(streams) + 2
+                or sl.taper_count.launches - counts[1]
+                != len(streams) + 1):
+            raise AssertionError(f"sellim_update {label}: under vmap not "
+                                 f"one launch of each kernel")
+        if not all(same_bits(torch.stack(v), g)
+                   for v, g in zip(zip(*each), got)):
+            raise AssertionError(f"sellim_update {label}: vmap differs from "
+                                 f"separate calls")
+
+    def plain():
+        outs = [sl._update_liminfo_reference(*a) for a in streams]
+        return tuple(torch.stack(v) for v in zip(*outs)) \
+            if in_dims is not None else outs[0]
+
+    # the front kernel's taper arguments and threshold against the plain
+    # version's, per stream
+    gaps = []
+    for a in streams:
+        scratch = {}
+        sl._update_launch(*(x[None] for x in a[:3]), *a[3:5], *const,
+                          scratch=scratch)
+        taper = []
+        plain_updates(lambda: taper.extend(record_calls(
+            sl, "sellim_taper", lambda: sl.sellim_update(*a))))
+        (lim0, bud0), = taper
+        if not (same_bits(scratch["lim"][0], lim0)
+                and same_bits(scratch["budget"][0], bud0)):
+            raise AssertionError(f"sellim_update {label}: the front "
+                                 f"kernel's taper arguments differ from the "
+                                 f"plain version's")
+        thr, want = scratch["thr"][0], card_floor_thr(a)
+        gaps.append(abs(thr.item() - want.item()) / abs(want.item())
+                    if want.item() else abs(thr.item()))
+    n = args[0].shape[-1]
+    nbytes = 20 * n * len(streams)
+    rep = loop_case(dev, "sellim_update",
+                    f"{label} {tuple(args[0].shape)}", kernel, plain,
+                    compare_update, nbytes, 0, floor, 20, plain_device, main)
+    rep["thr_gap"] = max(gaps)
+    print(f"loops sellim_update {label}: the front kernel's taper arguments "
+          f"bit-equal to the plain version's; carrier threshold against the "
+          f"plain version's on the card: largest relative gap "
+          f"{max(gaps):.3e}", flush=True)
+    return rep
+
+
+def phase_sellim(dev: dict, floor: float | None = None,
+                 updates: list | None = None) -> dict:
+    """sellim_update's cases of phase 3b: the arguments of eager flagship
+    steps (made here where not given) and of EME steps, the crafted cases,
+    and vmap over 8 flagship streams and over 8 crafted ones (a passband
+    each, then one shared)."""
+    from linrad_tpu_torch import derive_geometry, flagship_params
+    from linrad_tpu_torch.ops import fused_fft1 as ff
+    from linrad_tpu_torch.utils import cuda_build
+    from linrad_tpu_torch.utils.timing import graph_ms
+    t0 = time.perf_counter()
+    for line in cuda_build.build("sellim_update")[1]["log"].splitlines():
+        if any(w in line for w in ("entry function", "registers", "spill",
+                                   "smem")):
+            print(f"loops sellim_update ptxas: {line.strip()}")
+    mean_order_probe(dev)
+    if floor is None:
+        cuda = torch.device("cuda", torch.cuda.current_device())
+        floor = graph_ms(lambda: ff.empty_launch(cuda), 50, 20)
+    if updates is None:
+        p = flagship_params(fft1_variant="pallas")
+        steps = LOOP_STREAMS + 1
+        updates = loop_args(p, make_input(derive_geometry(p), seed=6,
+                                          steps=steps), TUNE_HZ, steps)[3]
+    rep = {"flagship": update_case(dev, "flagship", updates[1], floor,
+                                   main=True)}
+    pe = eme_params("pallas")
+    eme = loop_args(pe, make_eme_input(derive_geometry(pe), 3),
+                    EME_TUNE_HZ, 3)[3]
+    rep["eme"] = update_case(dev, "EME", eme[-1], floor)
+    for name in UPDATE_EDGE_CASES:
+        rep[f"edge {name}"] = update_case(dev, f"edge {name}",
+                                          update_edge_args(name), floor,
+                                          plain_device=False)
+    streams = updates[1:LOOP_STREAMS + 1]
+    stacked = tuple(torch.stack([a[i] for a in streams]) for i in range(5))
+    rep["vmap"] = update_case(dev, f"vmap R={LOOP_STREAMS}",
+                              stacked + streams[0][5:], floor,
+                              in_dims=(0,) * 5 + (None,) * 5)
+    crafted = [update_edge_args(c) for c in UPDATE_VMAP_CASES]
+    lo = torch.tensor(1500, dtype=torch.int64, device="cuda")
+    edge = tuple(torch.stack([c[i] for c in crafted]) for i in range(3))
+    each_sel = tuple(torch.stack([
+        c[i] if c[i] is not None else lo + 3 * (i - 3) for c in crafted])
+        for i in (3, 4))
+    rep["edge vmap"] = update_case(
+        dev, f"edge vmap R={len(crafted)}", edge + each_sel
+        + crafted[0][5:], floor, plain_device=False,
+        in_dims=(0,) * 5 + (None,) * 5)
+    rep["edge vmap shared passband"] = update_case(
+        dev, f"edge vmap R={len(crafted)}, one passband", edge
+        + (lo, lo + 9) + crafted[0][5:], floor, plain_device=False,
+        in_dims=(0,) * 3 + (None,) * 7)
+    print(f"loops sellim_update: {len(rep)} cases in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return rep
+
+
 def phase_loop_kernels(dev: dict) -> dict:
     """Phase 3b.  Returns, per loop kernel, its report at the main path's
     shape (the flagship's) and at every other shape."""
@@ -1765,7 +2126,7 @@ def phase_loop_kernels(dev: dict) -> dict:
     p = flagship_params(fft1_variant="pallas")
     geo = derive_geometry(p)
     steps = LOOP_STREAMS + 1
-    fits, tapers, clears = loop_args(p, make_input(geo, seed=6,
+    fits, tapers, clears, updates = loop_args(p, make_input(geo, seed=6,
                                                    steps=steps),
                                      TUNE_HZ, steps)
     fits_rep = {"flagship": fits_case(dev, "flagship", fits[1], floor,
@@ -1809,12 +2170,14 @@ def phase_loop_kernels(dev: dict) -> dict:
     taper_rep = phase_taper(dev, floor, tapers)
     clear_rep = phase_clear(dev, floor, clears)
     stats_rep = phase_stats(dev, floor)
+    update_rep = phase_sellim(dev, floor, updates)
     print(f"loops: kernels against their plain versions in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     phase_loop_chain(dev)
     print(f"loops: phase 3b in {time.perf_counter() - t0:.1f} s", flush=True)
     return {"blanker_fits": fits_rep, "sellim_taper": taper_rep,
-            "blanker_clear": clear_rep, "radar_stats": stats_rep}
+            "blanker_clear": clear_rep, "radar_stats": stats_rep,
+            "sellim_update": update_rep}
 
 
 def compare_batches(got: dict, ref: dict, geo, label: str) -> None:

@@ -8,8 +8,15 @@ sellim.c:738-1157).  The liminfo contract (sellim.c:757-763):
     liminfo[i]  > 0  => bin to strong channel scaled by liminfo[i]
 
 The steps and their order are those of the JAX version; see its module
-docstring for the reference line numbers of each.  Step 4's edge taper,
-a ``fori_loop`` of ``TAPER_STEPS`` passes there, is :func:`sellim_taper`:
+docstring for the reference line numbers of each.  ``update_liminfo`` is
+:func:`sellim_update` with the geometry's constants: on a CUDA tensor the
+front and back kernels of ``csrc/sellim_update.cu`` (steps 1-4's gain and
+budget with step 5's floor; steps 5-7) around the taper's launch, on a
+CPU tensor its plain version :func:`_update_liminfo_reference`, the steps
+as small tensor operations; a custom operator with a rule for
+``torch.func.vmap``, so that R streams make three launches.  Step 4's
+edge taper, a ``fori_loop`` of ``TAPER_STEPS`` passes there, is
+:func:`sellim_taper`:
 on a CUDA tensor one launch of the hand-written kernel in
 ``csrc/sellim_taper.cu``, which computes tiles of ``TAPER_TILE`` bins in
 closed form (or, where the closed form's precondition fails, by the
@@ -23,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -94,18 +102,41 @@ def update_liminfo(geo: Geometry, state: SellimState,
     """One liminfo update from the averaged fft1 power spectrum.
 
     avg_power: (fft1_size,) float32, power summed over channels.
-    sel_lo/sel_hi: protected passband bin range (tensors), or None."""
-    n = geo.fft1_size
-    dev = avg_power.device
-    # band-ascending order (bin n/2 first for IQ), as in the JAX version
-    half = n // 2 if geo.iq_input else 0
-    p = torch.roll(torch.clamp(avg_power, min=1e-30), half)
-    old_liminfo = torch.roll(state.liminfo, half)
-    old_wait = torch.roll(state.liminfo_wait, half)
+    sel_lo/sel_hi: protected passband bin range (tensors), or None.
+
+    :func:`sellim_update` with the geometry's constants: on a CUDA tensor
+    the two kernels of ``csrc/sellim_update.cu`` around the taper's, on a
+    CPU tensor its plain version :func:`_update_liminfo_reference`."""
+    blocktime = geo.fft1_new_points / geo.timf1_sampling_speed
+    wait_n = min(255, 1 + int(1.0 / max(
+        geo.fft1_frames_per_step * blocktime, 1e-9)) + 1)
     # float32-rounded Python scalars, as JAX's jnp.float32 constants (a
     # tensor made from one would be a synchronising host-to-device copy)
-    limit = float(np.float32(sellim_limit(geo, maxlevel)))
+    lim, wait = sellim_update(
+        avg_power, state.liminfo, state.liminfo_wait, sel_lo, sel_hi,
+        float(np.float32(sellim_limit(geo, maxlevel))),
+        float(np.float32(ston)), geo.fft1_size // 2 if geo.iq_input else 0,
+        wait_n, groups)
+    return SellimState(liminfo=lim, liminfo_wait=wait)
 
+
+def _update_liminfo_reference(avg_power: torch.Tensor,
+                              liminfo: torch.Tensor,
+                              liminfo_wait: torch.Tensor,
+                              sel_lo: torch.Tensor | None,
+                              sel_hi: torch.Tensor | None, limit: float,
+                              ston: float, half: int, wait_n: int,
+                              groups: int) -> tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """Plain PyTorch version of :func:`sellim_update`: steps 1-7 as small
+    tensor operations, the taper through :func:`sellim_taper`.  Returns
+    (liminfo, liminfo_wait)."""
+    n = avg_power.shape[0]
+    dev = avg_power.device
+    # band-ascending order (bin n/2 first for IQ), as in the JAX version
+    p = torch.roll(torch.clamp(avg_power, min=1e-30), half)
+    old_liminfo = torch.roll(liminfo, half)
+    old_wait = torch.roll(liminfo_wait, half)
     # 1. threshold + 2. skirt extension
     strong = p > limit
     q_dn = p < 0.3 * _shift_right(p)
@@ -138,7 +169,7 @@ def update_liminfo(geo: Geometry, state: SellimState,
     sel = gmin < 2.0 * gavg
     floor = (torch.where(sel, gmin, 0.0).sum()
              / torch.clamp(sel.sum(), min=1))
-    thr = floor * float(np.float32(ston))
+    thr = floor * ston
     carrier = (p > thr) & (lim == 0.0)
     # SFAC skirt: extend while the inner neighbour is >2x larger
     p_l = _shift_right(p)
@@ -150,9 +181,6 @@ def update_liminfo(geo: Geometry, state: SellimState,
     lim = torch.where(carrier & (lim == 0.0), -1.0, lim)
 
     # 6. wait counters + release limiting
-    blocktime = geo.fft1_new_points / geo.timf1_sampling_speed
-    wait_n = min(255, 1 + int(1.0 / max(
-        geo.fft1_frames_per_step * blocktime, 1e-9)) + 1)
     is_strong = lim != 0.0
     wait = torch.where(is_strong, wait_n,
                        torch.clamp(old_wait - 1, min=0)).to(torch.int32)
@@ -171,7 +199,7 @@ def update_liminfo(geo: Geometry, state: SellimState,
         in_sel = (idx >= sel_lo) & (idx <= sel_hi)
         lim = torch.where(in_sel, 0.0, lim)
         wait = torch.where(in_sel, 0, wait)
-    return SellimState(liminfo=lim, liminfo_wait=wait)
+    return lim, wait
 
 
 # ---- the edge taper: the kernel's wrapper and its plain version ---------
@@ -305,6 +333,144 @@ def _sellim_taper_fake(lim, budget):
 
 
 sellim_taper.register_vmap(_taper.vmap)
+
+
+# ---- the update on the card: two kernels around the taper --------------
+
+# launches of csrc/sellim_update.cu (its front and back kernels: two a
+# call), made and recorded into CUDA graphs
+update_count = cuda_build.launch_count("sellim_update")
+UPDATE_MAX_GROUPS = 32  # the front kernel takes a group a warp
+# the C launchers' argument types, the stream last
+_PTR, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+FRONT_ARGS = ((_PTR, _LL) * 2 + (_PTR,) * 4
+              + (_INT, _INT, ctypes.c_float, ctypes.c_float, _INT, _INT,
+                 _PTR))
+BACK_ARGS = ((_PTR, _LL) * 3 + (_PTR,) * 4 + (_LL, _PTR, _PTR)
+             + (_INT,) * 4 + (_PTR,))
+
+
+def _check_update(avg_power, liminfo, liminfo_wait, sel_lo, sel_hi, limit,
+                  ston, half, wait_n, groups) -> None:
+    """Refuse what the update does not take: avg_power and liminfo (n,)
+    float32 and liminfo_wait (n,) int32, a passband of two 0-d integer
+    tensors or none, half 0 or n // 2, n a multiple of ``groups`` with at
+    least 3 bins a group."""
+    n = avg_power.shape[-1]
+    if avg_power.dim() != 1 or n == 0 \
+            or avg_power.dtype != torch.float32 \
+            or liminfo.dtype != torch.float32 \
+            or liminfo_wait.dtype != torch.int32 \
+            or liminfo.shape != avg_power.shape \
+            or liminfo_wait.shape != avg_power.shape:
+        raise ValueError(f"sellim_update: avg_power and liminfo must be (n,) "
+                         f"float32 and liminfo_wait (n,) int32, got "
+                         f"{tuple(avg_power.shape)} {avg_power.dtype}, "
+                         f"{tuple(liminfo.shape)} {liminfo.dtype}, "
+                         f"{tuple(liminfo_wait.shape)} {liminfo_wait.dtype}")
+    if (sel_lo is None) != (sel_hi is None) or sel_lo is not None and any(
+            x.dim() != 0 or x.dtype.is_floating_point or x.dtype.is_complex
+            or x.dtype == torch.bool for x in (sel_lo, sel_hi)):
+        raise ValueError("sellim_update: sel_lo and sel_hi must both be 0-d "
+                         "integer tensors, or both None")
+    if half not in (0, n // 2) or groups < 1 or n % groups \
+            or n // groups < 3:
+        raise ValueError(f"sellim_update: half {half} and groups {groups} "
+                         f"do not fit n = {n}")
+
+
+def _rows(x: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """(R, n) rows whose bins are dense, and the rows' stride (0 where one
+    row serves every stream)."""
+    x = x if x.stride(-1) == 1 else x.contiguous()
+    return x, x.stride(0)
+
+
+def _update_launch(avg_power, liminfo, liminfo_wait, sel_lo, sel_hi, limit,
+                   ston, half, wait_n, groups, scratch=None):
+    """Three launches for R streams: the front kernel, the taper's, the
+    back kernel.  avg_power, liminfo, liminfo_wait (R, n); sel_lo, sel_hi
+    (R,), 0-d (one passband for every stream) or None.  Returns (liminfo,
+    liminfo_wait), each (R, n).  scratch, where given, is a dict that gets
+    the front kernel's outputs: the taper's arguments ``lim`` and
+    ``budget`` (band order) and each stream's carrier threshold ``thr``."""
+    dev = avg_power.device
+    r, n = avg_power.shape
+    if groups > UPDATE_MAX_GROUPS:
+        raise ValueError(f"sellim_update: the kernel takes at most "
+                         f"{UPDATE_MAX_GROUPS} groups, got {groups}")
+    sels = () if sel_lo is None else (sel_lo, sel_hi)
+    if any(x.device != dev for x in (liminfo, liminfo_wait, *sels)):
+        raise ValueError("sellim_update: tensors on different devices")
+    if any(x.dtype != torch.int64 for x in sels):
+        raise ValueError("sellim_update: the kernel takes an int64 passband")
+    sels = [x.contiguous() for x in sels]
+    (avg, avg_s), (old, old_s), (wait, wait_s) = (
+        _rows(x) for x in (avg_power, liminfo, liminfo_wait))
+    f32 = dict(dtype=torch.float32, device=dev)
+    lim0, budget = torch.empty((r, n), **f32), torch.empty((r, n), **f32)
+    thr = torch.empty(r, **f32)
+    work = torch.empty((r, n), dtype=torch.int32, device=dev)
+    what = f"sellim_update at ({r}, {n})"
+    cuda_build.launch(
+        cuda_build.bind("sellim_update", "lrt_sellim_front", FRONT_ARGS), (
+            avg.data_ptr(), avg_s, old.data_ptr(), old_s, lim0.data_ptr(),
+            budget.data_ptr(), work.data_ptr(), thr.data_ptr(), n, half,
+            limit, ston, groups, r), dev, what, update_count)
+    tapered = _taper_launch(lim0, budget)
+    out = torch.empty((r, n), **f32)
+    out_wait = torch.empty((r, n), dtype=torch.int32, device=dev)
+    lo, hi = (x.data_ptr() for x in sels) if sels else (None, None)
+    cuda_build.launch(
+        cuda_build.bind("sellim_update", "lrt_sellim_back", BACK_ARGS), (
+            avg.data_ptr(), avg_s, old.data_ptr(), old_s, wait.data_ptr(),
+            wait_s, tapered.data_ptr(), thr.data_ptr(), lo, hi,
+            sels[0].dim() if sels else 0, out.data_ptr(),
+            out_wait.data_ptr(), n, half, wait_n, r), dev, what,
+        update_count)
+    if scratch is not None:
+        scratch.update(lim=lim0, budget=budget, thr=thr)
+    return out, out_wait
+
+
+_update = cuda_build.Streams("sellim_update", _check_update,
+                             _update_liminfo_reference, _update_launch,
+                             shared=(3, 4))
+
+
+@torch.library.custom_op("linrad_tpu_torch::sellim_update", mutates_args=())
+def sellim_update(avg_power: torch.Tensor, liminfo: torch.Tensor,
+                  liminfo_wait: torch.Tensor, sel_lo: Optional[torch.Tensor],
+                  sel_hi: Optional[torch.Tensor], limit: float, ston: float,
+                  half: int, wait_n: int,
+                  groups: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sellim's liminfo update (``update_liminfo``'s steps 1-7) with its
+    constants: the power threshold ``limit`` and ``ston`` as float32
+    values, ``half`` the roll to band order (n // 2 for IQ, else 0),
+    ``wait_n`` the strong bins' hold count, ``groups`` the noise floor's
+    groups.  Returns the new (liminfo, liminfo_wait); no argument is
+    changed.
+
+    A PyTorch custom operator (``torch.ops.linrad_tpu_torch.sellim_update``)
+    with a rule for ``torch.func.vmap``: on a CUDA tensor three launches
+    for R streams (``csrc/sellim_update.cu``'s front kernel, the taper's,
+    its back kernel), a passband each or one shared; on a CPU tensor
+    :func:`_update_liminfo_reference`.  The two kernels' launches are
+    counted in ``update_count``."""
+    return _update(avg_power, liminfo, liminfo_wait, sel_lo, sel_hi, limit,
+                   ston, half, wait_n, groups)
+
+
+@sellim_update.register_fake
+def _sellim_update_fake(avg_power, liminfo, liminfo_wait, sel_lo, sel_hi,
+                        limit, ston, half, wait_n, groups):
+    _check_update(avg_power, liminfo, liminfo_wait, sel_lo, sel_hi, limit,
+                  ston, half, wait_n, groups)
+    return (torch.empty_like(avg_power),
+            torch.empty_like(avg_power, dtype=torch.int32))
+
+
+sellim_update.register_vmap(_update.vmap)
 
 
 def liminfo_gains(liminfo: torch.Tensor

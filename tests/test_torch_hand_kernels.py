@@ -49,6 +49,9 @@ CASES = {
     "sellim_taper": ("sellim_taper", sl.sellim_taper,
                      sl._sellim_taper_reference,
                      lambda: cs.taper_edge_args("tie", "cpu")),
+    "sellim_update": ("sellim_update", sl.sellim_update,
+                      sl._update_liminfo_reference,
+                      lambda: cs.update_edge_args("history", "cpu")),
     "radar_stats": ("frame_pulse_stats", rd.frame_pulse_stats,
                     rd._frame_pulse_stats_reference,
                     lambda: (torch.from_numpy(cs.stats_case("skirts", 8,

@@ -887,6 +887,8 @@ def test_op_schema_and_fake(name):
     elif name == "radar_stats":
         op, args = trd._frame_pulse_stats_op, (
             _t(cs.stats_case("spike", 16, 2048)), 32)
+    elif name == "sellim_update":
+        op, args = tsellim.sellim_update, cs.update_edge_args("history", CPU)
     else:
         n = GEO.fft1_size
         spectrum = _carrier_spectrum(np.random.default_rng(n + 2), n, 0)
