@@ -313,6 +313,17 @@ Phases, in order; any failure raises and the script exits non-zero:
             the last with TF32 switched on by the caller; make_tail's
             zeros in the state's tail shape on the card.  No fused_fft1
             launch.
+25. band    the band station (rxbench/configs/ssb-multi24-2msps.json:
+            2 MS/s, fft1 32,768 through torch.fft, fft2 65,536,
+            1,048,576 samples a step) on the cell's own traffic
+            (rxbench/generators/band.py): sellim_update at n 32,768 on
+            the crafted case and on arguments recorded from eager steps,
+            and blanker_fits on the step's 1,048,576 samples (the bank
+            from L2), each bit-equal to its plain version; then
+            MultiReceiver with the configuration's 24 sub-receivers,
+            graphed against graphed=False, every RxOutputs field bit for
+            bit; ms a block of both in turns, the graph's capture seconds,
+            pool and the peak device memory.  No fused_fft1 launch.
 
 Every phase makes its receivers as a user would, so on the card they
 replay graphs; the phases count the kernel's launches from the replays
@@ -1806,11 +1817,11 @@ def phase_stats(dev: dict, floor: float | None = None) -> dict:
 # release cap, counters counting down), NaN power, real input (no roll),
 # ties of power, runs and skirts longer than a thread's chunk, every bin
 # strong, 20 groups (the floor's sums over lanes holding two means), and n
-# 4,096, 8,192 and 16,384.
+# 4,096, 8,192, 16,384 and 32,768 (the band station's fft1).
 UPDATE_EDGE_CASES = ("quiet", "one-strong", "band-edges", "inf",
                      "maxlevel-0", "passband", "history", "nan", "real",
                      "ties", "long-runs", "all-strong", "groups-20",
-                     "n4096", "n8192", "n16384")
+                     "n4096", "n8192", "n16384", "n32768")
 UPDATE_LIMIT = 1e8
 UPDATE_WAIT_N = 7
 # eight of them at n 2,048 as a fleet's streams under vmap
@@ -1825,7 +1836,7 @@ def update_edge_case(name: str) -> dict:
     ``groups``."""
     rng = np.random.default_rng(300 + UPDATE_EDGE_CASES.index(name))
     n = {"groups-20": 2560, "n4096": 4096, "n8192": 8192,
-         "n16384": 16384}.get(name, 2048)
+         "n16384": 16384, "n32768": 32768}.get(name, 2048)
     half = 0 if name == "real" else n // 2
     k = np.arange(n)
     band = 1e3 * rng.chisquare(4, size=n) / 4
@@ -5441,6 +5452,151 @@ def stage_split(dev: dict, k_sub: int = MULTI_K, steps: int = 6) -> None:
           f"step {1e3 * whole / steps:.3f}")
 
 
+BAND_CONFIG = "rxbench/configs/ssb-multi24-2msps.json"
+BAND_TRAFFIC = "rxbench/traffic/band.json"
+BAND_STEPS = 6
+BAND_TIMED = 10
+# each hand kernel's launches in one band step: the fused fft1 takes at most
+# 4,096 points, so at 32,768 fft1 runs on cuFFT
+BAND_KERNELS = {"blanker_fits": 1, "blanker_clear": 1, "sellim_taper": 1,
+                "sellim_update": 2}
+BAND_TINY = dict(fft1_n_override=8, target_fft1_frames_per_step=8, fft3_n=6,
+                 max_pulses_per_block=8)
+
+
+def band_params(tiny: bool = False) -> tuple:
+    """The band station's RxParams (its configuration file's ``params``;
+    tiny: fft1 256, 2,048 samples a step) and its sub-receivers."""
+    from linrad_tpu_torch.params import RxParams
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, BAND_CONFIG)) as f:
+        cfg = json.load(f)
+    fields = {**cfg["params"], **(BAND_TINY if tiny else {})}
+    return (RxParams.from_json(json.dumps(fields), strict=True),
+            cfg["sub_receivers"])
+
+
+def band_input(geo, steps: int, device, seed: int = 25) -> tuple:
+    """``steps`` blocks of the cell's traffic (host complex64) and the
+    stations' frequencies, where the sub-receivers are tuned."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    from rxbench.generators import band
+    with open(os.path.join(root, BAND_TRAFFIC)) as f:
+        spec = {**json.load(f)["ring"], "steps": steps}
+
+    def gen():
+        return torch.Generator(device=device).manual_seed(seed)
+
+    return (band.make_ring(geo, spec, gen(), 0.0),
+            band.sub_receiver_hz(geo, spec, gen()))
+
+
+def phase_band(dev: dict, device="cuda", tiny: bool = False) -> None:
+    """Phase 25: the band station's widths.  ``device="cpu"`` with
+    ``tiny=True`` rehearses the control flow (no kernel cases there, and
+    graphed=True runs the graph's body eagerly)."""
+    from linrad_tpu_torch import derive_geometry
+    from linrad_tpu_torch.pipeline.receiver import MultiReceiver
+    from linrad_tpu_torch.utils import cuda_build
+    t0 = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    p, k = band_params(tiny)
+    geo = derive_geometry(p)
+    iq, hz = band_input(geo, BAND_STEPS + BAND_TIMED, device)
+    s = geo.samples_per_step
+    blocks = [iq[i * s:(i + 1) * s] for i in range(iq.shape[0] // s)]
+    print(f"band: fft1 {geo.fft1_size}, fft2 {geo.fft2_size}, mix1 "
+          f"{geo.mix1_size}, {s} samples a step, {k} sub-receivers from "
+          f"{hz[0]:.1f} to {hz[k - 1]:.1f} Hz [{dev['smi']}]", flush=True)
+
+    # (a) the kernels at the band's widths against their plain versions
+    if on_card:
+        from linrad_tpu_torch.ops import fused_fft1 as ff
+        from linrad_tpu_torch.utils.timing import graph_ms
+        cuda = torch.device("cuda", torch.cuda.current_device())
+        floor = graph_ms(lambda: ff.empty_launch(cuda), 50, 20)
+        fits, _tapers, clears, updates = loop_args(p, iq, float(hz[0]), 2)
+        update_case(dev, "band edge n32768", update_edge_args("n32768"),
+                    floor, plain_device=False)
+        for i, args in enumerate(updates):
+            update_case(dev, f"band step {i}", args, floor)
+        fits_case(dev, "band", fits[-1], floor)
+        clear_case(dev, "band", clears[-1], floor)
+    else:
+        print("band: the kernel cases need the card", flush=True)
+
+    # (b) MultiReceiver with K sub-receivers, graphed against eager: each
+    # kernel's calls counted from 0, so that one step's are known exactly
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    for count in cuda_build.COUNTS.values():
+        count.launches = count.captured = 0
+
+    def captured() -> int:
+        return sum(c.captured for c in cuda_build.COUNTS.values())
+
+    def calls(field: str) -> dict:
+        return {name: getattr(c, field) for name, c in
+                cuda_build.COUNTS.items() if getattr(c, field)}
+
+    def receiver(graphed):
+        rx = MultiReceiver(p, k, device=device, graphed=graphed,
+                           recorded=captured)
+        for j in range(k):
+            rx.tune_subch(j, float(hz[j]))
+        return rx
+
+    graphed = receiver(None if on_card else True)
+    eager = receiver(False)
+    for i, b in enumerate(blocks[:BAND_STEPS]):
+        equal_outputs(graphed.process_block(b), eager.process_block(b),
+                      f"band step {i}")
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    print(f"band: MultiReceiver K = {k}, {BAND_STEPS} steps, every "
+          f"RxOutputs field of the graph bit-equal to graphed=False's; "
+          f"{graphed.kernels_per_replay} hand kernels a replay; peak device "
+          f"memory {peak} bytes [{dev['smi']}]", flush=True)
+    if on_card:
+        g = graphed._lead
+        print(f"band graph: {g.replays} replays, {g.kernels} hand kernel "
+              f"calls recorded, capture {capture_s(g):.3f} s, graph pool "
+              f"{graph_pool_bytes(g.graph)} bytes [{dev['smi']}]", flush=True)
+        if (calls("captured") != BAND_KERNELS
+                or graphed.kernels_per_replay != sum(BAND_KERNELS.values())):
+            raise AssertionError(f"band: the graph recorded "
+                                 f"{calls('captured')}, expected "
+                                 f"{BAND_KERNELS}")
+        for count in cuda_build.COUNTS.values():
+            count.launches = 0
+
+    def ms_a_block(rx) -> float:
+        if on_card:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        for b in blocks[BAND_STEPS:]:
+            rx.process_block(b).audio.cpu()
+        return 1e3 * (time.perf_counter() - t) / (len(blocks) - BAND_STEPS)
+
+    turns = [("graph", graphed), ("eager", eager), ("eager", eager),
+             ("graph", graphed)]
+    print("band timing: ms a block (copy in, step, every audio to the "
+          "host) " + ", ".join(f"{name} {ms_a_block(rx):.3f}"
+                               for name, rx in turns)
+          + f" [{dev['smi']}]", flush=True)
+    # the graph's replays launch nothing through the wrappers; each of the
+    # eager receiver's steps launches each kernel as often as a replay does
+    eager_steps = 2 * (len(blocks) - BAND_STEPS)
+    want = {name: eager_steps * n for name, n in BAND_KERNELS.items()}
+    if on_card:
+        if calls("launches") != want:
+            raise AssertionError(f"band: {eager_steps} eager steps launched "
+                                 f"{calls('launches')}, expected {want}")
+        print(f"band: launches a step {BAND_KERNELS}, the fused fft1 none; "
+              f"graph replays none through the wrappers", flush=True)
+    print(f"band: phase in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> None:
     t0 = time.perf_counter()
     dev = phase_device()
@@ -5477,6 +5633,7 @@ def main() -> None:
     radar_launches, loop_launches["radar_stats"] = phase_radar_mode(dev)
     launches += radar_launches
     phase_fft2_step(dev)
+    phase_band(dev)
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} "
           f"s [{dev['smi']}]")
     entries = [{

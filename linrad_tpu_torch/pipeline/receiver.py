@@ -36,7 +36,10 @@ Each block is a root span ``rx.block`` of the tracer (``utils/trace.py``)
 over ``rx.h2d`` (the block's copy in), ``rx.replay`` (the graph's input
 copy and replay; ``rx.step`` for the eager step), ``rx.owned``,
 ``rx.resample``, ``rx.hooks`` and ``control.update``; ``run_file``'s
-wait on the prefetcher is ``file.wait``.  The tracer counts the bytes of
+wait on the prefetcher is ``file.wait``.  A :class:`MultiReceiver`'s
+block is a root span ``multi.block`` over ``multi.h2d``,
+``multi.replay`` (``multi.step`` eagerly) and ``multi.owned``, and
+counts its K sub-receivers in ``subrx_blocks``.  The tracer counts the bytes of
 a block handed over in host memory, and a graphed receiver's replays of
 another tuning structure's graph than the last (``structure_switches``).
 """
@@ -689,17 +692,18 @@ class MultiReceiver(PairedState, GraphedReceiver):
 
     def process_block(self, block) -> RxOutputs:
         """One step; outputs.audio/baseb/agc_gain have shape (K, S, C)."""
-        with trace.root("rx.block"):
-            with trace.span("rx.h2d", self.device):
+        with trace.root("multi.block"):
+            with trace.span("multi.h2d", self.device):
                 block = _as_block(block, self.geo, self.device)
+            trace.add("subrx_blocks", self.n_subch)
             if not self.graphs:
-                with trace.span("rx.step", self.device):
+                with trace.span("multi.step", self.device):
                     self._state, out = self._step(self.tables, self._state,
                                                   block, self._tune_bins)
                 return out
-            with trace.span("rx.replay"):
+            with trace.span("multi.replay"):
                 out = self._graph_for((self._tune_bins,))(block)
-            with trace.span("rx.owned", self.device):
+            with trace.span("multi.owned", self.device):
                 return _owned(out)
 
     def run(self, iq: np.ndarray):

@@ -24,8 +24,10 @@ per-thread shares of menu.c:914-957).  The port's counterpart:
   ``h2d_bytes`` and ``d2h_bytes``, the bytes the program hands from host
   memory to its device and reads back into host memory (counted at its
   own copies, whatever the device: on a CPU device they move nothing),
-  and ``structure_switches``, a receiver's replays of another tuning
-  structure's graph than the one it replayed before (the AFC's lock).
+  ``structure_switches``, a receiver's replays of another tuning
+  structure's graph than the one it replayed before (the AFC's lock),
+  and ``subrx_blocks``, the sub-receiver blocks a ``MultiReceiver``
+  processed (K a block).
   :func:`report` also reads the counters kept elsewhere: the controls'
   ``host_reads``, the graphs' ``replays`` and the hand kernels' launches
   (``utils/cuda_build.COUNTS``).
@@ -74,7 +76,8 @@ _enabled = False     # the operator's switch
 _on = False          # what every span checks: _enabled, or a profiler seen
 _device = False      # device intervals: _enabled on a machine with CUDA
 
-counters = {"h2d_bytes": 0, "d2h_bytes": 0, "structure_switches": 0}
+counters = {"h2d_bytes": 0, "d2h_bytes": 0, "structure_switches": 0,
+            "subrx_blocks": 0}
 
 _lock = threading.Lock()
 _tls = threading.local()
