@@ -6,10 +6,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device   require CUDA, print the card, its power limit, the torch and
             CUDA versions; turn TF32 off for matmul and cuDNN.
-2. build    build the six kernels of linrad_tpu_torch/csrc/ (the fused
+2. build    build the seven kernels of linrad_tpu_torch/csrc/ (the fused
             fft1, the blanker's fits, sellim's taper, the stupid blanker,
-            the radar front's statistics, sellim's liminfo update)
-            with nvcc (sm_90a),
+            the radar front's statistics, sellim's liminfo update, mix1's
+            fractional-bin ramp) with nvcc (sm_90a),
             one nvcc each, all at once, and print the build seconds and
             what ptxas says of registers and spills.
 3. kernel   fused_fft1 (kernel) against fused_fft1_reference (plain
@@ -91,7 +91,19 @@ Phases, in order; any failure raises and the script exits non-zero:
             version's, its carrier threshold's gap printed, one launch of
             each kernel under vmap; first a probe that PyTorch's CUDA sums
             and means of rows of 3, 20 and 32 take the front kernel's
-            order; its ptxas lines.  Two runs
+            order; its ptxas lines;
+            mix1_ramp (mix1's fractional-bin ramp: its sums in XLA's CPU
+            order, wrap, cos and sin, one launch) on the arguments of an
+            eager flagship step (4,096 samples, one row), under vmap over
+            8 of them as a fleet's streams, and on the EME receiver's
+            per-frame fractions and slopes once its AFC holds the signal,
+            then on the 108 crafted cases (RAMP_CASES: lengths 1 to 65,536,
+            1, 8 and 24 rows, a fraction a row or a frame, slope or not):
+            the ramp and the new phase bit-equal to the plain version's;
+            first a probe that the kernel's remainder, -2 pi product, cosf
+            and sinf are torch's on the card and that torch divides by a
+            Python integer as the product with its float reciprocal; its
+            bound the launch floor; its ptxas lines.  Two runs
             bit-identical, a replay from a CUDA graph bit-equal to the
             eager call.  Per case
             device_ms (graph replay), eager ms, the launch floor, bound_ms
@@ -110,8 +122,9 @@ Phases, in order; any failure raises and the script exits non-zero:
             step, fft1 2048 with the kernel) through Receiver for 8 steps
             of a weak keyed CW tone, Gaussian noise, impulse noise and a
             strong carrier; one kernel launch per step (per replay of the
-            Receiver's graph), and one of each loop kernel (their counts
-            set to 0 before and read after); the same input through a
+            Receiver's graph), and one of each loop kernel, mix1_ramp
+            among them (their counts set to 0 before and read after); the
+            same input through a
             Receiver on torch.fft ("xla") must agree within the stated
             bars.
 5. timing   eager step time and complex Msamples/s for both receivers.
@@ -285,7 +298,9 @@ Phases, in order; any failure raises and the script exits non-zero:
             structure's graph), through the Receiver a user makes: the
             passes that each step's sellim_taper inputs need (recorded
             from the eager run) and whether the kernel's closed form
-            holds on them; the graphed run bit-equal to graphed=False;
+            holds on them; one mix1_ramp call recorded in each graph and
+            its launches by the replays; the graphed run bit-equal to
+            graphed=False;
             against the same
             run on the CPU to the parity bars of ROADMAP (counts, liminfo
             signs and the AFC status per step exact; step 0's audio and
@@ -353,6 +368,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import struct
 import subprocess
@@ -635,7 +651,8 @@ LOOP_KERNELS = (("blanker_fits", "linrad_tpu/ops/blanker.py:322"),
                 ("sellim_taper", "linrad_tpu/ops/sellim.py:150"),
                 ("blanker_clear", "linrad_tpu/ops/blanker.py:449"),
                 ("radar_stats", "linrad_tpu/weak/radar.py:84"),
-                ("sellim_update", "linrad_tpu/ops/sellim.py:92"))
+                ("sellim_update", "linrad_tpu/ops/sellim.py:92"),
+                ("mix1_ramp", "linrad_tpu/ops/mix1.py:185"))
 LOOP_MAIN_CASE = {"radar_stats": "radar"}
 LOOP_FITS_TOL = 1e-5     # weak and pwr against the plain version: max_rel
 LOOP_TAPER_TOL = 1e-6    # the tapered gains: max_rel; the signs exact
@@ -657,10 +674,11 @@ TAPER_MODES = ("HSMS", None, "NCW", "WCW", "QRSS")
 def loop_counts() -> dict:
     """The loop kernels' launch counts by name."""
     from linrad_tpu_torch.ops import blanker as bl
+    from linrad_tpu_torch.ops import mix1 as mx
     from linrad_tpu_torch.ops import sellim as sl
     return {"blanker_fits": bl.fits_count, "sellim_taper": sl.taper_count,
             "blanker_clear": bl.clear_count,
-            "sellim_update": sl.update_count}
+            "sellim_update": sl.update_count, "mix1_ramp": mx.ramp_count}
 
 
 def vmap_one_launch(kernel: str, run, each=None) -> None:
@@ -703,18 +721,20 @@ def with_loop_references(run, fits=None):
     calls them, by their plain versions (as ``stage_split`` patches the
     stage functions), or the fits by ``fits`` where given."""
     from linrad_tpu_torch.ops import blanker as bl
+    from linrad_tpu_torch.ops import mix1 as mx
     from linrad_tpu_torch.ops import sellim as sl
     saved = (bl.blanker_fits, sl.sellim_taper, bl.blanker_clear,
-             sl.sellim_update)
+             sl.sellim_update, mx.mix1_ramp)
     bl.blanker_fits = fits or bl._blanker_fits_reference
     sl.sellim_taper = sl._sellim_taper_reference
     bl.blanker_clear = bl._blanker_clear_reference
     sl.sellim_update = sl._update_liminfo_reference
+    mx.mix1_ramp = mx._frac_ramp_reference
     try:
         return run()
     finally:
         (bl.blanker_fits, sl.sellim_taper, bl.blanker_clear,
-         sl.sellim_update) = saved
+         sl.sellim_update, mx.mix1_ramp) = saved
 
 
 def plain_updates(run) -> list:
@@ -2119,6 +2139,222 @@ def phase_sellim(dev: dict, floor: float | None = None,
     return rep
 
 
+# Crafted fractional-bin ramps for mix1_ramp (mix1's ramp kernel), held
+# against the plain version here on the card and, through a numpy model of
+# the kernel, on the CPU (tests/test_torch_mix1_ramp.py): each row length
+# of RAMP_SHAPES as frames x hop (one sample; a block of 16 short of one,
+# one, one past; the sums' levels at 255 and 256; the cells' 4,096 and
+# one past; 65,536), with 1, 8 and 24 rows, one fraction a row or one a
+# frame, with and without a slope.  Fractions of either sign up to half a
+# bin, phases in [0, 1), slopes up to 0.05 bins a hop; among the rows of
+# 8 and 24 a fraction of -0.0 on a phase of 0 (the zeros' signs) and
+# fractions of exactly +-0.5.
+RAMP_SHAPES = {1: (1, 1), 15: (5, 3), 16: (2, 8), 17: (17, 1),
+               255: (15, 17), 256: (2, 128), 4096: (32, 128),
+               4097: (17, 241), 65536: (64, 1024)}
+RAMP_ROWS = (1, 8, 24)
+RAMP_CASES = tuple((length, rows, per_frame, slope)
+                   for length in RAMP_SHAPES for rows in RAMP_ROWS
+                   for per_frame in (False, True) for slope in (False, True))
+
+
+def ramp_label(case: tuple) -> str:
+    length, rows, per_frame, slope = case
+    return (f"L{length}-rows{rows}-{'frames' if per_frame else 'one'}"
+            f"{'-slope' if slope else ''}")
+
+
+def ramp_args(case: tuple, device="cuda") -> tuple:
+    """(frac_phase, tune_frac, tune_slope, n, m, hop) of one crafted case
+    of RAMP_CASES: one row is a Receiver's shapes (a 0-d phase, a 0-d or
+    (n,) fraction), more rows a stacked state's ((rows,), then (rows, 1) or
+    (rows, n)); m the power of two at least twice hop, as the geometry's."""
+    length, rows, per_frame, slope = case
+    n, hop = RAMP_SHAPES[length]
+    m = max(8, 1 << (2 * hop - 1).bit_length())
+    rng = np.random.default_rng(RAMP_CASES.index(case))
+    f32 = np.float32
+    fp = rng.random(rows).astype(f32)
+    fr = rng.uniform(-0.5, 0.5, (rows, n if per_frame else 1)).astype(f32)
+    sl = rng.uniform(-0.05, 0.05, fr.shape).astype(f32)
+    if rows > 1:
+        fp[0], fr[0], fr[1], fr[2] = 0.0, -0.0, 0.5, -0.5
+    if rows == 1:
+        fp, fr, sl = fp[0], fr[0], sl[0]
+        if not per_frame:
+            fr, sl = fr[0], sl[0]
+    t = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
+    return t(fp), t(fr), t(sl) if slope else None, n, m, hop
+
+
+def compare_ramp(got, want) -> tuple[float, str]:
+    """mix1_ramp's (ramp, new phase) against the plain version's: bit for
+    bit."""
+    (kr, kp), (rr, rp) = got, want
+    if not (same_bits(kr, rr) and same_bits(kp, rp)):
+        raise AssertionError(f"mix1_ramp: not bit-equal: ramp max_rel "
+                             f"{max_rel(kr, rr):.3e}, phase max_rel "
+                             f"{max_rel(kp, rp):.3e}")
+    return 0.0, "ramp and new phase bit-equal"
+
+
+def ramp_probe(dev: dict) -> None:
+    """The kernel's premises: its remainder, -2 pi product, cosf and sinf
+    are torch's on the card for values of every size and sign (the probe
+    kernel of csrc/mix1_ramp.cu against torch.remainder(x, 1.0),
+    (-2.0 * math.pi) * x, torch.cos, torch.sin), and torch's division of
+    a float32 tensor by a Python integer is the product with its float
+    reciprocal."""
+    import ctypes
+    from linrad_tpu_torch.utils import cuda_build
+    rng = np.random.default_rng(24)
+    f32 = np.float32
+    special = np.array([0.0, -0.0, 0.5, -0.5, 1.0, -1.0, 3.0, -3.0, 1e-30,
+                        -1e-30, 1 - 2 ** -24, -(2 ** -24), 2 ** -24, 1e6,
+                        -1e6, 3e7, -3e7, 0.99999994, -0.99999994], f32)
+    x = np.concatenate([special] + [
+        (rng.standard_normal(4096) * scale).astype(f32)
+        for scale in (1e-3, 0.3, 1.0, 7.0, 1e3)])
+    xt = torch.from_numpy(x).cuda()
+    out = torch.empty((x.size, 4), dtype=torch.float32, device="cuda")
+    cuda_build.launch(
+        cuda_build.bind("mix1_ramp", "lrt_mix1_ramp_probe",
+                        (ctypes.c_void_p,) * 2 + (ctypes.c_int,
+                                                  ctypes.c_void_p)),
+        (xt.data_ptr(), out.data_ptr(), x.size), xt.device,
+        "mix1_ramp probe", None)
+    want = (torch.remainder(xt, 1.0), (-2.0 * math.pi) * xt, torch.cos(xt),
+            torch.sin(xt))
+    same = [int((out[:, j].view(torch.int32) == w.view(torch.int32)).sum())
+            for j, w in enumerate(want)]
+    divs = []
+    for d in (3, 15, 17, 128, 241, 256, 1024):
+        inv = float(f32(1) / f32(d))
+        divs.append(int((xt / d).view(torch.int32).eq(
+            (xt * inv).view(torch.int32)).sum()))
+    print(f"loops mix1_ramp probe: of {x.size} values the kernel's "
+          f"remainder, -2 pi product, cosf and sinf equal torch's on the "
+          f"card in {same}; x / d equal to x times the float of 1 / d for "
+          f"d 3, 15, 17, 128, 241, 256, 1,024 in {divs} [{dev['smi']}]",
+          flush=True)
+    if min(same + divs) < x.size:
+        raise AssertionError(f"mix1_ramp: the kernel's float operations "
+                             f"are not torch's on the card: {same}, {divs}")
+
+
+def ramp_case(dev: dict, label: str, args: tuple, floor: float,
+              main: bool = False, in_dims: tuple | None = None) -> dict:
+    """mix1_ramp on one call's arguments, or under torch.func.vmap over
+    stacked streams (``in_dims``; the plain version vmapped the same way,
+    as the fleet ran it): against the plain version on the card, bit for
+    bit, one launch; timed beside it.  Its bound is the launch floor: the
+    bytes (the fractions read, 8 a sample and the phase written) take a
+    small share of it."""
+    from linrad_tpu_torch.ops import mix1 as mx
+    if in_dims is None:
+        kernel = lambda: mx.mix1_ramp(*args)
+        plain = lambda: mx._frac_ramp_reference(*args)
+        before = mx.ramp_count.launches
+        kernel()
+        if mx.ramp_count.launches != before + 1:
+            raise AssertionError(f"mix1_ramp {label}: not one launch")
+    else:
+        kernel = lambda: torch.func.vmap(mx.mix1_ramp, in_dims=in_dims)(
+            *args)
+        plain = lambda: torch.func.vmap(mx._frac_ramp_reference,
+                                        in_dims=in_dims)(*args)
+        vmap_one_launch("mix1_ramp", kernel)
+    fp, fr, sl, n, _m, hop = args
+    rows = fp.numel()
+    nbytes = 4 * (fr.numel() + (0 if sl is None else sl.numel())) \
+        + rows * (8 + 8 * n * hop)
+    rep = loop_case(dev, "mix1_ramp", f"{label} ({rows} rows, L {n * hop})",
+                    kernel, plain, compare_ramp, nbytes, 0, floor, 50,
+                    main=main)
+    rep["bytes_ms"], rep["bound_ms"] = rep["bound_ms"], floor
+    rep["bound_by"] = "launch"
+    print(f"loops mix1_ramp {label}: bound_ms {floor:.5f} (the launch "
+          f"floor; its {nbytes} bytes alone {rep['bytes_ms']:.6f}), share "
+          f"of bound {floor / rep['device_ms']:.3f}", flush=True)
+    return rep
+
+
+def plain_ramps(run):
+    """run() with mix1's ramp through its plain version (frac_ramp calls
+    the module's mix1_ramp)."""
+    from linrad_tpu_torch.ops import mix1 as mx
+    real = mx.mix1_ramp
+    mx.mix1_ramp = mx._frac_ramp_reference
+    try:
+        return run()
+    finally:
+        mx.mix1_ramp = real
+
+
+def ramp_calls(p, iq: np.ndarray, tune_hz: float, steps: int) -> list:
+    """The arguments of every mix1_ramp call in ``steps`` eager steps of a
+    Receiver of p on the card."""
+    from linrad_tpu_torch.ops import mix1 as mx
+    from linrad_tpu_torch.pipeline.receiver import Receiver
+    rx = Receiver(p, device="cuda", graphed=False)
+    rx.tune(tune_hz)
+    s = rx.geo.samples_per_step
+    return record_calls(mx, "mix1_ramp", lambda: [
+        rx.process_block(iq[i * s:(i + 1) * s]) for i in range(steps)])
+
+
+def phase_ramp(dev: dict, floor: float | None = None) -> dict:
+    """mix1_ramp's cases of phase 3b: the probe; the arguments of eager
+    flagship steps (one row, 4,096 samples), the 8 of them as a fleet's
+    streams under vmap, the EME receiver's per-frame fractions and slopes
+    once the AFC holds the signal (the slope case), timed beside the plain
+    version; every crafted case bit for bit."""
+    from linrad_tpu_torch import derive_geometry, flagship_params
+    from linrad_tpu_torch.ops import fused_fft1 as ff
+    from linrad_tpu_torch.ops import mix1 as mx
+    from linrad_tpu_torch.utils import cuda_build
+    from linrad_tpu_torch.utils.timing import graph_ms
+    t0 = time.perf_counter()
+    for line in cuda_build.build("mix1_ramp")[1]["log"].splitlines():
+        if any(w in line for w in ("entry function", "registers", "spill",
+                                   "smem")):
+            print(f"loops mix1_ramp ptxas: {line.strip()}")
+    ramp_probe(dev)
+    if floor is None:
+        cuda = torch.device("cuda", torch.cuda.current_device())
+        floor = graph_ms(lambda: ff.empty_launch(cuda), 50, 20)
+    p = flagship_params(fft1_variant="pallas")
+    steps = LOOP_STREAMS + 1
+    flag = ramp_calls(p, make_input(derive_geometry(p), seed=6, steps=steps),
+                      TUNE_HZ, steps)
+    rep = {"flagship": ramp_case(dev, "flagship", flag[1], floor,
+                                 main=True)}
+    streams = flag[1:LOOP_STREAMS + 1]
+    rep["vmap"] = ramp_case(
+        dev, f"vmap R={LOOP_STREAMS}", (torch.stack([a[0] for a in streams]),
+                                        streams[0][1], None,
+                                        *streams[0][3:]), floor,
+        in_dims=(0, None, None, None, None, None))
+    pe = eme_params("pallas")
+    eme = [a for a in ramp_calls(pe, make_eme_input(derive_geometry(pe),
+                                                    EME_STEPS),
+                                 EME_TUNE_HZ, EME_STEPS) if a[2] is not None]
+    if not eme:
+        raise AssertionError("mix1_ramp: the EME receiver never handed the "
+                             "ramp a slope")
+    rep["eme slope"] = ramp_case(dev, "EME per-frame fractions and slopes",
+                                 eme[-1], floor)
+    for case in RAMP_CASES:
+        args = ramp_args(case)
+        compare_ramp(mx.mix1_ramp(*args), mx._frac_ramp_reference(*args))
+    print(f"loops mix1_ramp: the {len(RAMP_CASES)} crafted cases (lengths "
+          f"{tuple(RAMP_SHAPES)}, rows {RAMP_ROWS}, one fraction or one a "
+          f"frame, with and without a slope) bit-equal to the plain version "
+          f"on the card; {len(rep)} timed cases in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return rep
+
+
 def phase_loop_kernels(dev: dict) -> dict:
     """Phase 3b.  Returns, per loop kernel, its report at the main path's
     shape (the flagship's) and at every other shape."""
@@ -2182,13 +2418,14 @@ def phase_loop_kernels(dev: dict) -> dict:
     clear_rep = phase_clear(dev, floor, clears)
     stats_rep = phase_stats(dev, floor)
     update_rep = phase_sellim(dev, floor, updates)
+    ramp_rep = phase_ramp(dev, floor)
     print(f"loops: kernels against their plain versions in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     phase_loop_chain(dev)
     print(f"loops: phase 3b in {time.perf_counter() - t0:.1f} s", flush=True)
     return {"blanker_fits": fits_rep, "sellim_taper": taper_rep,
             "blanker_clear": clear_rep, "radar_stats": stats_rep,
-            "sellim_update": update_rep}
+            "sellim_update": update_rep, "mix1_ramp": ramp_rep}
 
 
 def compare_batches(got: dict, ref: dict, geo, label: str) -> None:
@@ -5020,6 +5257,7 @@ def phase_presets(dev: dict, device="cuda", modes=None) -> int:
     eagerly; no timing)."""
     from linrad_tpu_torch import RxMode, derive_geometry, preset
     from linrad_tpu_torch.io.modeinput import mode_input
+    from linrad_tpu_torch.ops import mix1 as mx
     from linrad_tpu_torch.ops import sellim as sl
     t0 = time.perf_counter()
     on_card = torch.device(device).type == "cuda"
@@ -5032,7 +5270,14 @@ def phase_presets(dev: dict, device="cuda", modes=None) -> int:
         geo = derive_geometry(p)
         steps = PRESET_AFC_STEPS if p.afc_enable else PRESET_STEPS
         iq = mode_input(mode, geo, steps + PRESET_TIME_STEPS, PRESET_DIAL_HZ)
+        captured = mx.ramp_count.captured
         g, g_outs, g_status = run_preset(p, iq, device, graphed, steps)
+        # each graph records one mix1_ramp call, which each replay runs
+        ramps = (mx.ramp_count.captured - captured,
+                 sum(x.replays for x in g.graphs.values()))
+        if on_card and ramps[0] != len(g.graphs):
+            raise AssertionError(f"{label}mix1_ramp: {ramps[0]} calls "
+                                 f"recorded in {len(g.graphs)} graphs")
         eager = []
         tapers = record_calls(sl, "sellim_taper", lambda: eager.append(
             run_preset(p, iq, device, False, steps)))
@@ -5052,7 +5297,9 @@ def phase_presets(dev: dict, device="cuda", modes=None) -> int:
               f"{p.demod.name}; {steps} steps graphed "
               f"({', '.join(f'{n} {x.replays}' for n, x in g.graphs.items())}"
               f" replays) bit-equal to graphed=False; AFC status per step "
-              f"{g_status}")
+              f"{g_status}; mix1_ramp {ramps[0]} call(s) recorded, "
+              f"{ramps[1] if on_card else 0} launches by the replays "
+              f"(L {geo.fftx_frames_per_step * geo.mix1_new_points})")
         _, c_outs, c_status = run_preset(p, iq, "cpu", False, steps)
         if c_status != g_status:
             raise AssertionError(f"{label}AFC on the CPU {c_status} != "

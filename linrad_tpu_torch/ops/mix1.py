@@ -7,18 +7,28 @@ transformed at 1/decimation size and overlap-added into the timf3
 baseband stream.  The per-frame rotation is tracked as an integer phase
 index (c*H mod N), so there is no drift; the tuned bin is a tensor, so
 retuning changes no shape.
+
+The fractional-bin ramp, :func:`frac_ramp`, is the custom operator
+:func:`mix1_ramp`: on a CUDA tensor one launch of the hand-written kernel
+in ``csrc/mix1_ramp.cu`` for every row (R streams under
+``torch.func.vmap`` too), on a CPU tensor its plain version
+:func:`_frac_ramp_reference`, the sums in XLA's CPU order as small tensor
+operations.  There is no fallback between the two.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
 from scipy.special import erfc
 
 from ..geometry import Geometry
+from ..utils import cuda_build
 from ..utils.fporder import ordered_cumsum, ordered_sum
 from .framing import overlap_add
 from .windows import synthesis_weights
@@ -152,6 +162,21 @@ def frac_ramp(geo: Geometry, frac_phase: torch.Tensor,
     frac_phase (...,); tune_frac and tune_slope () or (..., n).  Returns
     (complex64 ramp (..., n*mix1_new_points), final phase in turns).
 
+    :func:`mix1_ramp` with the geometry's sizes: on a CUDA tensor one
+    launch of ``csrc/mix1_ramp.cu``, on a CPU tensor
+    :func:`_frac_ramp_reference`."""
+    return mix1_ramp(frac_phase, tune_frac.to(torch.float32),
+                     None if tune_slope is None
+                     else tune_slope.to(torch.float32),
+                     n, geo.mix1_size, geo.mix1_new_points)
+
+
+def _frac_ramp_reference(frac_phase: torch.Tensor, tune_frac: torch.Tensor,
+                         tune_slope: torch.Tensor | None, n: int, m: int,
+                         hop_m: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`mix1_ramp` (``m`` the mix1 size,
+    ``hop_m`` its new points a frame).
+
     The phase is a float32 prefix sum over the step, and its rounding
     reaches the baseband amplified: mix2 divides by the mix1 window, which
     is small at the band edges, and the rounding is white across the band.
@@ -159,8 +184,6 @@ def frac_ramp(geo: Geometry, frac_phase: torch.Tensor,
     :mod:`..utils.fporder`): in torch's own order the baseband of a 3 kHz
     preset with the dial between bins differed from JAX's by 2.4e-4, as
     far as either is from a float64 ramp."""
-    m = geo.mix1_size
-    hop_m = geo.mix1_new_points
     lead = tuple(frac_phase.shape)
     fr = torch.broadcast_to(tune_frac.to(torch.float32), lead + (n,))
     per_samp = torch.repeat_interleave(fr / m, hop_m, dim=-1)
@@ -177,3 +200,116 @@ def frac_ramp(geo: Geometry, frac_phase: torch.Tensor,
     theta = (-2.0 * math.pi) * torch.remainder(cum, 1.0)
     ramp = torch.complex(torch.cos(theta), torch.sin(theta))
     return ramp, torch.remainder(frac_phase + ordered_sum(per_samp), 1.0)
+
+
+# ---- the ramp on the card: one kernel ----------------------------------
+
+# launches of csrc/mix1_ramp.cu, made and recorded into CUDA graphs
+ramp_count = cuda_build.launch_count("mix1_ramp")
+RAMP_MAX_LEN = 1 << 19   # samples a row: the levels fit in shared memory
+_PTR, _LL = ctypes.c_void_p, ctypes.c_longlong
+RAMP_ARGS = ((_PTR, _LL) + (_PTR, _LL, _LL) * 2 + (_PTR, _PTR)
+             + (ctypes.c_int,) * 3 + (ctypes.c_float,) * 2 + (_PTR,))
+RAMP_CONSTANTS = (("lrt_mix1_ramp_max_len", RAMP_MAX_LEN),)
+
+
+def _check_ramp(frac_phase, tune_frac, tune_slope, n, m, hop_m) -> None:
+    """Refuse what the ramp does not take: float32 tensors, tune_frac and
+    tune_slope (where given) broadcastable to frac_phase's shape plus n
+    frames, and n, m, hop_m of at least 1."""
+    tensors = [frac_phase, tune_frac] + (
+        [] if tune_slope is None else [tune_slope])
+    if any(x.dtype != torch.float32 for x in tensors):
+        raise ValueError(f"mix1_ramp: frac_phase, tune_frac and tune_slope "
+                         f"must be float32, got "
+                         f"{[x.dtype for x in tensors]}")
+    if n < 1 or m < 1 or hop_m < 1:
+        raise ValueError(f"mix1_ramp: n {n}, m {m} and hop_m {hop_m} must "
+                         f"be at least 1")
+    full = tuple(frac_phase.shape) + (n,)
+    for x in tensors[1:]:
+        try:
+            ok = torch.broadcast_shapes(x.shape, full) == full
+        except RuntimeError:
+            ok = False
+        if not ok:
+            raise ValueError(f"mix1_ramp: a fraction or slope of shape "
+                             f"{tuple(x.shape)} does not broadcast to "
+                             f"{full} (frac_phase's shape and n frames)")
+
+
+def _per_frame(x: torch.Tensor, full: tuple) -> tuple:
+    """x (R, ...), broadcast to ``full`` = (R, *lead, n), as (rows, n) rows
+    (a view wherever the strides allow) and its row and frame strides."""
+    x = x.reshape((x.shape[0],) + (1,) * (len(full) - x.dim())
+                  + tuple(x.shape[1:]))
+    x = x.expand(full).reshape(-1, full[-1])
+    return x, x.stride(0), x.stride(1)
+
+
+def _ramp_launch(frac_phase, tune_frac, tune_slope, n, m, hop_m):
+    """One launch for R streams, each of any leading axes: frac_phase (R,
+    *lead), tune_frac and tune_slope (R, ...) broadcastable to (R, *lead,
+    n), one block a row.  Returns (ramp (R, *lead, n hop_m) complex64, new
+    phase (R, *lead))."""
+    dev = frac_phase.device
+    sls = () if tune_slope is None else (tune_slope,)
+    if any(x.device != dev for x in (tune_frac, *sls)):
+        raise ValueError("mix1_ramp: tensors on different devices")
+    length = n * hop_m
+    if length > RAMP_MAX_LEN:
+        raise ValueError(f"mix1_ramp: the kernel takes at most "
+                         f"{RAMP_MAX_LEN} samples a row, got {length}")
+    full = tuple(frac_phase.shape) + (n,)
+    fp = frac_phase.reshape(-1)
+    rows = fp.shape[0]
+    ramp = torch.empty((rows, length), dtype=torch.complex64, device=dev)
+    phase = torch.empty(rows, dtype=torch.float32, device=dev)
+    fr, fr_r, fr_f = _per_frame(tune_frac, full)
+    sl, sl_r, sl_f = _per_frame(tune_slope, full) if sls else (None, 0, 0)
+    # a Python scalar divisor is its float reciprocal's product on the card
+    f32 = np.float32
+    cuda_build.launch(
+        cuda_build.bind("mix1_ramp", "lrt_mix1_ramp", RAMP_ARGS,
+                        expect=RAMP_CONSTANTS), (
+            fp.data_ptr(), fp.stride(0), fr.data_ptr(), fr_r, fr_f,
+            None if sl is None else sl.data_ptr(), sl_r, sl_f,
+            ramp.data_ptr(), phase.data_ptr(), rows, n, hop_m,
+            float(f32(1) / f32(m)), float(f32(1) / f32(hop_m))), dev,
+        f"mix1_ramp at ({rows}, {length})", ramp_count)
+    return ramp.reshape(full[:-1] + (length,)), phase.reshape(full[:-1])
+
+
+_ramp = cuda_build.Streams("mix1_ramp", _check_ramp, _frac_ramp_reference,
+                           _ramp_launch)
+
+
+@torch.library.custom_op("linrad_tpu_torch::mix1_ramp", mutates_args=())
+def mix1_ramp(frac_phase: torch.Tensor, tune_frac: torch.Tensor,
+              tune_slope: Optional[torch.Tensor], n: int, m: int,
+              hop_m: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """mix1's fractional-bin ramp over n frames of hop_m timf3 samples, at
+    tune_frac bins of an m-point mix1 (with tune_slope, linear in each
+    frame), from the phase frac_phase (turns).  frac_phase (...,) float32;
+    tune_frac and tune_slope float32, broadcastable to (..., n).  Returns
+    (ramp (..., n hop_m) complex64, the new phase (...,)); no argument is
+    changed.
+
+    A PyTorch custom operator (``torch.ops.linrad_tpu_torch.mix1_ramp``)
+    with a rule for ``torch.func.vmap``: on a CUDA tensor one launch of
+    ``csrc/mix1_ramp.cu`` for every row of every stream, bit for bit the
+    plain version's on the card; on a CPU tensor
+    :func:`_frac_ramp_reference`.  Its launches are counted in
+    ``ramp_count``."""
+    return _ramp(frac_phase, tune_frac, tune_slope, n, m, hop_m)
+
+
+@mix1_ramp.register_fake
+def _mix1_ramp_fake(frac_phase, tune_frac, tune_slope, n, m, hop_m):
+    _check_ramp(frac_phase, tune_frac, tune_slope, n, m, hop_m)
+    return (frac_phase.new_empty(tuple(frac_phase.shape) + (n * hop_m,),
+                                 dtype=torch.complex64),
+            torch.empty_like(frac_phase))
+
+
+mix1_ramp.register_vmap(_ramp.vmap)

@@ -19,6 +19,7 @@ import torch
 import chip_smoke as cs
 from linrad_tpu_torch.ops import blanker as bl
 from linrad_tpu_torch.ops import fused_fft1 as ff
+from linrad_tpu_torch.ops import mix1 as mx
 from linrad_tpu_torch.ops import sellim as sl
 from linrad_tpu_torch.utils import cuda_build, trace
 from linrad_tpu_torch.weak import radar as rd
@@ -52,6 +53,8 @@ CASES = {
     "sellim_update": ("sellim_update", sl.sellim_update,
                       sl._update_liminfo_reference,
                       lambda: cs.update_edge_args("history", "cpu")),
+    "mix1_ramp": ("mix1_ramp", mx.mix1_ramp, mx._frac_ramp_reference,
+                  lambda: cs.ramp_args((4096, 8, True, True), "cpu")),
     "radar_stats": ("frame_pulse_stats", rd.frame_pulse_stats,
                     rd._frame_pulse_stats_reference,
                     lambda: (torch.from_numpy(cs.stats_case("skirts", 8,

@@ -48,6 +48,7 @@ from linrad_tpu_torch import convert
 from linrad_tpu_torch import derive_geometry as t_derive_geometry
 from linrad_tpu_torch.ops import blanker as tbl
 from linrad_tpu_torch.ops import fused_fft1 as tff
+from linrad_tpu_torch.ops import mix1 as tmix1
 from linrad_tpu_torch.ops import sellim as tsellim
 from linrad_tpu_torch.utils import cuda_build
 from linrad_tpu_torch.weak import radar as trd
@@ -889,6 +890,8 @@ def test_op_schema_and_fake(name):
             _t(cs.stats_case("spike", 16, 2048)), 32)
     elif name == "sellim_update":
         op, args = tsellim.sellim_update, cs.update_edge_args("history", CPU)
+    elif name == "mix1_ramp":
+        op, args = tmix1.mix1_ramp, cs.ramp_args((4096, 1, True, True), CPU)
     else:
         n = GEO.fft1_size
         spectrum = _carrier_spectrum(np.random.default_rng(n + 2), n, 0)
