@@ -20,11 +20,14 @@ sub-receivers cost one set of device operations, not K.
 
 Each stage runs inside a stage span of the tracer (``utils/trace.py``),
 named as in the chain: ``step.fft1``, ``step.sellim``, ``step.timf2``,
-``step.blanker``, ``step.fft2``, ``step.mix1``, ``step.fft3``,
-``step.mix2``, ``step.pol``, ``step.demod``, ``step.agc`` (the AGC,
-expander and squelch).  Eagerly a stage span times the stage on the
-host; in a CUDA graph captured with the tracer's device intervals on it
-is a timing-event pair, and otherwise nothing.
+``step.blanker``, ``step.fft2``, ``step.spur`` (the spur canceller's
+subtraction: with fft2 between its transform and its power spectrum,
+which is ``step.fft2`` again; without fft2 after ``step.fft1``),
+``step.mix1``, ``step.fft3``, ``step.mix2``, ``step.pol``,
+``step.demod``, ``step.agc`` (the AGC, expander and squelch).  Eagerly a
+stage span times the stage on the host; in a CUDA graph captured with
+the tracer's device intervals on it is a timing-event pair, and
+otherwise nothing.
 
 A ``shards=d`` configuration only changes the geometry (every stage's
 frames divide by d): this step runs it on one device, and
@@ -230,8 +233,9 @@ def _wideband_front(geo: Geometry, p: RxParams, blanker_pulsewidth: int,
         s_fft1, fft1_spec, step_power = fft1_step(
             geo, tables.fft1, state.fft1, block, p.fft_avg1num,
             variant=p.fft1_variant)
-        fftx_spec, s_spur = fft1_spec, state.spur
-        if p.spur_enable and not geo.second_fft_enable:
+    fftx_spec, s_spur = fft1_spec, state.spur
+    if p.spur_enable and not geo.second_fft_enable:
+        with trace.stage("step.spur"):
             s_spur, fftx_spec = spur_subtract_step(
                 geo, tables.spur_template, state.spur, fftx_spec)
     wide = dict(fft1=s_fft1, sellim=state.sellim, timf2=state.timf2,
@@ -273,15 +277,20 @@ def _wideband_front(geo: Geometry, p: RxParams, blanker_pulsewidth: int,
     with trace.stage("step.fft2"):
         t2_tail, fftx_spec = fft2_transform(geo, tables.fft2,
                                             state.fft2.tail, weak, strong)
-        if p.spur_enable:
-            # subtract BEFORE the power spectrum, as the reference runs
-            # eliminate_spurs ahead of its power block (fft2.c:648-670):
-            # cancelled spurs vanish from the waterfall and the
-            # auto-search never adds them again
+        if not p.spur_enable:
+            s_fft2, fft2_power = fft2_power_update(
+                geo, state.fft2, t2_tail, fftx_spec, p.fft_avg1num)
+    if p.spur_enable:
+        # subtract BEFORE the power spectrum, as the reference runs
+        # eliminate_spurs ahead of its power block (fft2.c:648-670):
+        # cancelled spurs vanish from the waterfall and the
+        # auto-search never adds them again
+        with trace.stage("step.spur"):
             wide["spur"], fftx_spec = spur_subtract_step(
                 geo, tables.spur_template, state.spur, fftx_spec)
-        s_fft2, fft2_power = fft2_power_update(geo, state.fft2, t2_tail,
-                                               fftx_spec, p.fft_avg1num)
+        with trace.stage("step.fft2"):
+            s_fft2, fft2_power = fft2_power_update(
+                geo, state.fft2, t2_tail, fftx_spec, p.fft_avg1num)
     wide.update(sellim=s_sellim, timf2=s_timf2, fft2=s_fft2,
                 blanker=s_blank)
     aux.update(fft2_power=fft2_power, liminfo=s_sellim.liminfo,

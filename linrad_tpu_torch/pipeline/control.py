@@ -21,9 +21,14 @@ its bytes in the tracer's ``d2h_bytes`` (the tuning's copies back in
 device's wait out of the read), ``control.read`` (the spectrum's copy
 out and its channel sum), ``control.afc`` (the AFC's numpy work),
 ``control.tune`` (the tuning's copies to the device) and
-``control.spur`` (the spur scan, its reads included).  ``AFCTracker``
-and ``SpurManager`` are numpy classes, this package's own copies of the
-JAX package's.
+``control.spur`` (the spur scan, its reads included), inside which
+``spur.read`` (the spectrum's copy out and its channel sum, the tuned
+bin, and in the scan the four spur state tensors), ``spur.search`` (the
+manager's numpy drop, re-centre and candidate search) and ``spur.write``
+(the four tensors back to the device).  The manager's decisions are
+counted in the tracer's ``spur_*`` counters and its active slots after
+the latest scan in ``spur_slots``.  ``AFCTracker`` and ``SpurManager``
+are numpy classes, this package's own copies of the JAX package's.
 """
 
 from __future__ import annotations
@@ -61,6 +66,14 @@ class WeakSignalControl:
         self.spur_scan_interval = max(1, int(round(1.4 / self.step_seconds)))
         self.spur_manager = SpurManager(geo) if params.spur_enable else None
         trace.watch("host_reads", self, "host_reads")
+        if self.spur_manager is not None:
+            trace.watch("spur_slots", self, "spur_slots")
+
+    @property
+    def spur_slots(self) -> int:
+        """The spur manager's active slots after its latest scan."""
+        m = self.spur_manager
+        return 0 if m is None else len(m._age)
 
     def on_tune(self, freq_hz: float) -> None:
         if self.afc is not None:
@@ -121,8 +134,9 @@ class WeakSignalControl:
             with trace.span("control.spur"):
                 spec = (out.fft2_power if geo.second_fft_enable
                         else out.fft1_avg_power)
-                avg = np.sum(spec.cpu().numpy(), axis=-1)
-                c = int(tune_bin.reshape(-1)[0])
+                with trace.span("spur.read"):
+                    avg = np.sum(spec.cpu().numpy(), axis=-1)
+                    c = int(tune_bin.reshape(-1)[0])
                 # the spectrum, the tuned bin, and the manager's read of
                 # the four spur state tensors
                 self.host_reads += 6

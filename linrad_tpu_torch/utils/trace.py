@@ -26,10 +26,13 @@ per-thread shares of menu.c:914-957).  The port's counterpart:
   own copies, whatever the device: on a CPU device they move nothing),
   ``structure_switches``, a receiver's replays of another tuning
   structure's graph than the one it replayed before (the AFC's lock),
-  and ``subrx_blocks``, the sub-receiver blocks a ``MultiReceiver``
-  processed (K a block).
+  ``subrx_blocks``, the sub-receiver blocks a ``MultiReceiver``
+  processed (K a block), and the spur manager's decisions
+  (``weak/spur.py:SpurManager.scan``): ``spur_scans``, ``spur_adds``,
+  ``spur_drops`` and ``spur_shifts`` (re-centres).
   :func:`report` also reads the counters kept elsewhere: the controls'
-  ``host_reads``, the graphs' ``replays`` and the hand kernels' launches
+  ``host_reads`` and ``spur_slots`` (active slots after the latest
+  scan), the graphs' ``replays`` and the hand kernels' launches
   (``utils/cuda_build.COUNTS``).
 - **Device intervals** (after :func:`enable`, on a CUDA device): a
   timing-event pair around each graph replay, each block's copy in and
@@ -40,10 +43,11 @@ per-thread shares of menu.c:914-957).  The port's counterpart:
   the host records it, so the enqueue of its first operation counts as
   busy.  A graph captured after :func:`enable` carries a timing-event
   pair at each stage boundary (:func:`stage`), so each of its replays
-  gives every stage's device time; one captured with tracing off carries
-  no extra node.  The profiler alone turns on no event and no
-  synchronisation: the program adds no device operation to a profiled
-  run.
+  gives every stage's device time (a stage entered twice in a step, as
+  ``step.fft2`` is around the spur canceller's ``step.spur``, summed a
+  replay); one captured with tracing off carries no extra node.  The
+  profiler alone turns on no event and no synchronisation: the program
+  adds no device operation to a profiled run.
 
 :func:`report` returns the totals, the device's busy time a block, its
 idle share, each idle gap's time by the innermost span open at its
@@ -77,7 +81,8 @@ _on = False          # what every span checks: _enabled, or a profiler seen
 _device = False      # device intervals: _enabled on a machine with CUDA
 
 counters = {"h2d_bytes": 0, "d2h_bytes": 0, "structure_switches": 0,
-            "subrx_blocks": 0}
+            "subrx_blocks": 0, "spur_scans": 0, "spur_adds": 0,
+            "spur_drops": 0, "spur_shifts": 0}
 
 _lock = threading.Lock()
 _tls = threading.local()
@@ -437,11 +442,15 @@ def _resolve() -> None:
         base = _host_ns(anchor, first)
         spans = [(name, first.elapsed_time(ev0), first.elapsed_time(ev1))
                  for name, ev0, ev1 in graph.stages]
+        per_replay: dict = {}
+        for name, a, b in spans:
+            per_replay[name] = per_replay.get(name, 0.0) + b - a
         with _lock:
-            for name, a, b in spans:
+            for name, ms in per_replay.items():
                 tot = _stage_ms.setdefault(name, [0, 0.0])
                 tot[0] += 1
-                tot[1] += b - a
+                tot[1] += ms
+            for name, a, b in spans:
                 _intervals.append((name, block, base + int(a * 1e6),
                                    base + int(b * 1e6)))
     _stage_reads.extend(keep)

@@ -24,6 +24,7 @@ import torch
 
 from ..geometry import Geometry
 from ..ops.windows import make_window
+from ..utils import trace
 
 MAX_SPURS = 16      # MAX_NO_OF_SPURS analog (fixed shape)
 TEMPLATE_HALF = 3   # bins each side of the spur centre
@@ -286,7 +287,11 @@ class SpurManager:
     Finds persistent narrow peaks in the long-term averaged spectrum
     (outside the protected passband), assigns them to state slots and
     re-centres drifted spurs.  :meth:`scan` reads the four state tensors
-    from the device once and writes them back."""
+    from the device once and writes them back.  Its spans (``spur.read``,
+    ``spur.search``, ``spur.write``) and counters (``spur_scans``,
+    ``spur_adds``, ``spur_drops``, ``spur_shifts``) are the tracer's
+    (``utils/trace.py``).  After a scan ``_age`` holds exactly the
+    active slots."""
 
     geo: Geometry
     ston: float = 25.0          # power ratio over median to call a spur
@@ -296,14 +301,34 @@ class SpurManager:
 
     def scan(self, avg_power: np.ndarray, state: SpurState,
              protect_lo: int = -1, protect_hi: int = -1) -> SpurState:
+        dev = state.bins.device
+        with trace.span("spur.read"):
+            bins = state.bins.cpu().numpy().copy()
+            amp = state.amp.cpu().numpy().copy()
+            rot = state.rot.cpu().numpy().copy()
+            frac = state.frac.cpu().numpy().copy()
+        with trace.span("spur.search"):
+            adds, drops, shifts = self._search(avg_power, bins, amp, rot,
+                                               frac, protect_lo, protect_hi)
+        with trace.span("spur.write"):
+            new = SpurState(bins=torch.from_numpy(bins).to(dev),
+                            amp=torch.from_numpy(amp).to(dev),
+                            rot=torch.from_numpy(rot).to(dev),
+                            frac=torch.from_numpy(frac).to(dev))
+        trace.add("spur_scans", 1)
+        trace.add("spur_adds", adds)
+        trace.add("spur_drops", drops)
+        trace.add("spur_shifts", shifts)
+        return new
+
+    def _search(self, avg_power, bins, amp, rot, frac, protect_lo: int,
+                protect_hi: int) -> tuple[int, int, int]:
+        """The drop, re-centre and candidate search on host copies of the
+        state, in place; returns the slots (added, dropped, re-centred)."""
         p = np.asarray(avg_power, np.float64)
         n = len(p)
         med = np.median(p)
-        dev = state.bins.device
-        bins = state.bins.cpu().numpy().copy()
-        amp = state.amp.cpu().numpy().copy()
-        rot = state.rot.cpu().numpy().copy()
-        frac = state.frac.cpu().numpy().copy()
+        adds = drops = shifts = 0
         taken = set(int(b) for b in bins if b >= 0)
         # drop spurs whose TRACKED amplitude faded (avg_power is taken
         # after the subtraction, so a well-cancelled spur leaves no power
@@ -323,6 +348,7 @@ class SpurManager:
                 frac[s] = 0
                 taken.discard(b)
                 self._age.pop(s, None)
+                drops += 1
                 continue
             # re-centre a drifted spur: once the tracked fractional offset
             # leaves the centre cell, move the integer bin and keep the
@@ -336,6 +362,7 @@ class SpurManager:
                 frac[s] -= shift
                 taken.discard(b)
                 taken.add(int(bins[s]))
+                shifts += 1
         # find candidates: local maxima well above the floor, narrow
         cand = np.argsort(p)[::-1][:64]
         for b in cand:
@@ -357,7 +384,5 @@ class SpurManager:
             frac[s] = 0
             self._age[s] = 0
             taken.add(b)
-        return SpurState(bins=torch.from_numpy(bins).to(dev),
-                         amp=torch.from_numpy(amp).to(dev),
-                         rot=torch.from_numpy(rot).to(dev),
-                         frac=torch.from_numpy(frac).to(dev))
+            adds += 1
+        return adds, drops, shifts

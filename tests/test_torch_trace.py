@@ -1,8 +1,8 @@
 """The port's tracer (linrad_tpu_torch/utils/trace.py): spans, their
 switch, set-up spans, counters, the device report's arithmetic, the
-Chrome trace; the spans and counters of a Receiver with the AFC on and
-of a FleetRunner, and their outputs bit-identical with tracing on and
-off; the stage spans of an eager step.
+Chrome trace; the spans and counters of a Receiver with the AFC on, of
+one with the spur canceller and of a FleetRunner, and their outputs
+bit-identical with tracing on and off; the stage spans of an eager step.
 
 The tests marked ``card`` need a CUDA device (they skip here): the
 device intervals against CUDA events, the stage events of a graph
@@ -36,6 +36,10 @@ STAGES = ["step.fft1", "step.sellim", "step.timf2", "step.blanker",
           "step.fft2", "step.mix1", "step.fft3", "step.mix2", "step.pol",
           "step.demod", "step.agc"]
 FLAGSHIP_STAGES = [s for s in STAGES if s != "step.pol"]
+# with the spur canceller: its subtraction between fft2's transform and
+# its power spectrum
+SPUR_STAGES = (FLAGSHIP_STAGES[:5] + ["step.spur", "step.fft2"]
+               + FLAGSHIP_STAGES[5:])
 
 
 @pytest.fixture
@@ -376,6 +380,86 @@ def test_stage_spans_in_an_eager_step(tracer):
     for name in FLAGSHIP_STAGES:
         assert tot[name]["count"] == 1
         assert tot[name]["self_seconds"] == tot[name]["seconds"] > 0
+
+
+def spur_receiver(graphed: bool) -> Receiver:
+    """The tiny flagship with the spur canceller, its manager scanning
+    every block (at this step size the interval would be 131 blocks)."""
+    p = dataclasses.replace(flagship_params(tiny=True), spur_enable=True)
+    rx = Receiver(p, device="cpu", graphed=graphed)
+    rx.control.spur_scan_interval = 1
+    return rx
+
+
+def spur_blocks(geo) -> list:
+    """The flagship input of 4 steps with a steady carrier, a birdie the
+    spur canceller takes."""
+    s = geo.samples_per_step
+    t = np.arange(4 * s) / geo.timf1_sampling_speed
+    carrier = (100.0 * np.exp(2j * np.pi * -20_100.0 * t)).astype(
+        np.complex64)[:, None]
+    return [b + carrier[i * s:(i + 1) * s]
+            for i, b in enumerate(noise_blocks(geo, 4))]
+
+
+@pytest.mark.parametrize("graphed", [True, False])
+def test_spur_spans_and_counters(tracer, graphed):
+    """Each block of the tiny spur receiver: the scan's spans under
+    ``control.spur`` (``spur.read`` twice: the spectrum and the tuned bin,
+    then the four state tensors; ``spur.search``; ``spur.write``), the
+    stages with ``step.spur`` (eagerly), and the counters of the manager's
+    decisions, read from its own arrays."""
+    rx = spur_receiver(graphed)
+    blocks = spur_blocks(rx.geo)
+    trace.enable()
+    for b in blocks:
+        rx.process_block(b)
+    recs = trace.records()
+    roots = [r for r in recs if r[0] == "rx.block"]
+    assert len(roots) == len(blocks)
+    step = "rx.replay" if graphed else "rx.step"
+    for root in roots:
+        tree = block_tree(recs, root[2])
+        assert {("control.spur", "control.update"),
+                ("spur.read", "control.spur"),
+                ("spur.search", "control.spur"),
+                ("spur.write", "control.spur")} <= tree
+        mine = sorted((r for r in recs if r[2] == root[2]),
+                      key=lambda r: r[3])
+        assert [r[0] for r in mine if r[0].startswith("spur.")] == [
+            "spur.read", "spur.read", "spur.search", "spur.write"]
+        assert [r[0] for r in mine if r[1] == step] == SPUR_STAGES
+    tot = trace.totals()
+    assert tot["spur.search"]["count"] == len(blocks)
+    assert tot["step.spur"]["count"] == len(blocks)
+    assert tot["step.fft2"]["count"] == 2 * len(blocks)
+    c = trace.report()["counters"]
+    held = int((rx.state.spur.bins >= 0).sum())
+    assert rx.control.spur_slots == held > 0
+    assert c["spur_slots"] >= held
+    assert c["spur_scans"] == len(blocks)
+    assert c["spur_adds"] - c["spur_drops"] == held
+    assert rx.control.host_reads == 6 * len(blocks)
+
+
+def test_spur_outputs_bit_identical_with_tracing_on_and_off(tracer):
+    def run():
+        rx = spur_receiver(True)
+        outs = [rx.process_block(b) for b in spur_blocks(rx.geo)]
+        return outs, rx.state.spur
+
+    off = run()
+    trace.enable()
+    on = run()
+    assert trace.counters["spur_scans"] == 8
+    for a, b in zip(off[0], on[0]):
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            assert (x is None) == (y is None), f.name
+            if x is not None:
+                assert torch.equal(x, y), f.name
+    for f in dataclasses.fields(off[1]):
+        assert torch.equal(getattr(off[1], f.name), getattr(on[1], f.name))
 
 
 # ---- on the card ----------------------------------------------------------
