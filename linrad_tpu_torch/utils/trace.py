@@ -29,7 +29,9 @@ per-thread shares of menu.c:914-957).  The port's counterpart:
   ``subrx_blocks``, the sub-receiver blocks a ``MultiReceiver``
   processed (K a block), and the spur manager's decisions
   (``weak/spur.py:SpurManager.scan``): ``spur_scans``, ``spur_adds``,
-  ``spur_drops`` and ``spur_shifts`` (re-centres).
+  ``spur_drops`` and ``spur_shifts`` (re-centres), and
+  ``spur_full_sorts``, its scans of a wide spectrum that fell back from
+  exact selection to the full median or sort.
   :func:`report` also reads the counters kept elsewhere: the controls'
   ``host_reads`` and ``spur_slots`` (active slots after the latest
   scan), the graphs' ``replays`` and the hand kernels' launches
@@ -82,7 +84,7 @@ _device = False      # device intervals: _enabled on a machine with CUDA
 
 counters = {"h2d_bytes": 0, "d2h_bytes": 0, "structure_switches": 0,
             "subrx_blocks": 0, "spur_scans": 0, "spur_adds": 0,
-            "spur_drops": 0, "spur_shifts": 0}
+            "spur_drops": 0, "spur_shifts": 0, "spur_full_sorts": 0}
 
 _lock = threading.Lock()
 _tls = threading.local()

@@ -28,6 +28,12 @@ from ..utils import trace
 
 MAX_SPURS = 16      # MAX_NO_OF_SPURS analog (fixed shape)
 TEMPLATE_HALF = 3   # bins each side of the spur centre
+CANDIDATES = 64     # peaks the manager's search visits, strongest first
+# From this many bins up the search selects its median and candidates
+# instead of sorting the spectrum (below it the sort costs little); the
+# median's bracket comes from a strided sample of about SAMPLE values.
+SELECT_MIN = 1 << 14
+SAMPLE = 1 << 12
 
 # amplitude-smoothing window over frames (spur_speknum analog) and its
 # shape: "sg", a quadratic Savitzky-Golay kernel, is a local least-squares
@@ -280,6 +286,62 @@ def spur_subtract_step(geo: Geometry, template: torch.Tensor,
     return SpurState(bins=state.bins, amp=amp, rot=rot, frac=frac), cleaned
 
 
+def select_median(p: np.ndarray) -> float | None:
+    """``np.median(p)`` of a float64 spectrum without NaN, by selection.
+
+    A sorted strided sample guesses where the middle ranks lie; the guess
+    moves by the ranks that the counts of values under and up to it miss
+    by, and a bracket of sample values around it, once two counts show
+    that it holds both middle ranks, is partitioned alone.  The mean of
+    the one or two middle values is ``np.median``'s own.  The bracket
+    widens twice; None where it still misses (a sample that aliases the
+    spectrum's structure)."""
+    n = len(p)
+    k1, k2 = (n - 1) // 2, n // 2
+    stride = max(1, n // SAMPLE)
+    s = np.sort(p[::stride])
+    m = len(s)
+    j = k1 * m // n
+    under = int(np.count_nonzero(p < s[j]))
+    if under > k1:
+        j += (k1 - under) // stride
+    else:
+        upto = int(np.count_nonzero(p <= s[j]))
+        if upto <= k2:
+            j += (k2 - upto) // stride + 1
+    j = min(max(j, 0), m - 1)
+    for half in (16, 64, 256):
+        lo, hi = s[max(j - half, 0)], s[min(j + half, m - 1)]
+        below = int(np.count_nonzero(p < lo))
+        inside = (p >= lo) & (p <= hi)
+        if below <= k1 and below + np.count_nonzero(inside) > k2:
+            win = np.partition(p[inside], (k1 - below, k2 - below))
+            return np.mean(win[k1 - below:k2 - below + 1])
+    return None
+
+
+def select_candidates(p: np.ndarray, thr) -> np.ndarray | None:
+    """The bins that the search's loop visits in ``np.argsort(p)[::-1]``
+    before one under ``thr`` stops it: the :data:`CANDIDATES` largest at
+    most of those at or over it, strongest first.  None where that order
+    could differ from the sort's (two of them equal, the last equal to the
+    next one down, or a NaN threshold, which stops nothing): the quicksort
+    breaks a tie in its own way."""
+    if np.isnan(thr):
+        return None
+    sel = np.flatnonzero(p >= thr)
+    cut = len(sel) - CANDIDATES - 1
+    if cut >= 0:
+        # one more than the loop visits: it shows whether a tie crosses
+        # the cut
+        sel = sel[np.argpartition(p[sel], cut)[cut:]]
+    sel = sel[np.argsort(p[sel])[::-1]]
+    v = p[sel]
+    if np.any(v[1:] == v[:-1]):
+        return None
+    return sel[:CANDIDATES]
+
+
 @dataclass
 class SpurManager:
     """Host-side spur list control (the auto-search of spur.c), numpy.
@@ -289,9 +351,15 @@ class SpurManager:
     re-centres drifted spurs.  :meth:`scan` reads the four state tensors
     from the device once and writes them back.  Its spans (``spur.read``,
     ``spur.search``, ``spur.write``) and counters (``spur_scans``,
-    ``spur_adds``, ``spur_drops``, ``spur_shifts``) are the tracer's
-    (``utils/trace.py``).  After a scan ``_age`` holds exactly the
-    active slots."""
+    ``spur_adds``, ``spur_drops``, ``spur_shifts``, ``spur_full_sorts``)
+    are the tracer's (``utils/trace.py``).  After a scan ``_age`` holds
+    exactly the active slots.
+
+    From :data:`SELECT_MIN` bins up the search takes its median and its
+    candidates by exact selection (:func:`select_median`,
+    :func:`select_candidates`) instead of a full sort, and falls back to
+    ``np.median`` and ``np.argsort`` where a selection could decide
+    otherwise; ``spur_full_sorts`` counts the scans that fell back."""
 
     geo: Geometry
     ston: float = 25.0          # power ratio over median to call a spur
@@ -308,8 +376,8 @@ class SpurManager:
             rot = state.rot.cpu().numpy().copy()
             frac = state.frac.cpu().numpy().copy()
         with trace.span("spur.search"):
-            adds, drops, shifts = self._search(avg_power, bins, amp, rot,
-                                               frac, protect_lo, protect_hi)
+            adds, drops, shifts, sorts = self._search(
+                avg_power, bins, amp, rot, frac, protect_lo, protect_hi)
         with trace.span("spur.write"):
             new = SpurState(bins=torch.from_numpy(bins).to(dev),
                             amp=torch.from_numpy(amp).to(dev),
@@ -319,15 +387,22 @@ class SpurManager:
         trace.add("spur_adds", adds)
         trace.add("spur_drops", drops)
         trace.add("spur_shifts", shifts)
+        trace.add("spur_full_sorts", sorts)
         return new
 
     def _search(self, avg_power, bins, amp, rot, frac, protect_lo: int,
-                protect_hi: int) -> tuple[int, int, int]:
+                protect_hi: int) -> tuple[int, int, int, int]:
         """The drop, re-centre and candidate search on host copies of the
-        state, in place; returns the slots (added, dropped, re-centred)."""
+        state, in place; returns the slots (added, dropped, re-centred)
+        and 1 where a spectrum of :data:`SELECT_MIN` bins or more took
+        the full median or sort, else 0."""
         p = np.asarray(avg_power, np.float64)
         n = len(p)
-        med = np.median(p)
+        select = n >= SELECT_MIN and not np.isnan(p).any()
+        med = select_median(p) if select else None
+        full = med is None
+        if full:
+            med = np.median(p)
         adds = drops = shifts = 0
         taken = set(int(b) for b in bins if b >= 0)
         # drop spurs whose TRACKED amplitude faded (avg_power is taken
@@ -364,7 +439,10 @@ class SpurManager:
                 taken.add(int(bins[s]))
                 shifts += 1
         # find candidates: local maxima well above the floor, narrow
-        cand = np.argsort(p)[::-1][:64]
+        cand = select_candidates(p, self.ston * med) if select else None
+        if cand is None:
+            full = True
+            cand = np.argsort(p)[::-1][:CANDIDATES]
         for b in cand:
             b = int(b)
             if p[b] < self.ston * med:
@@ -385,4 +463,4 @@ class SpurManager:
             self._age[s] = 0
             taken.add(b)
             adds += 1
-        return adds, drops, shifts
+        return adds, drops, shifts, int(full and n >= SELECT_MIN)

@@ -29,6 +29,7 @@ from linrad_tpu.weak import spur as jspur
 from linrad_tpu_torch import RxParams, convert
 from linrad_tpu_torch import derive_geometry as t_derive_geometry
 from linrad_tpu_torch.pipeline.receiver import Receiver
+from linrad_tpu_torch.utils import trace
 from linrad_tpu_torch.weak import spur as tspur
 
 STEPS = 10
@@ -201,6 +202,168 @@ def test_spur_manager_scan_decisions():
     js, ts = _scan_pair(jm, tm, p2, js, ts)
     assert ts.bins[:3].tolist() == [41, 450, -1]
     assert ts.bins.dtype == torch.int32
+
+
+
+# ---- the search's selection against the JAX package's full sort -------
+
+WIDE = 1 << 17          # the QRSS grabber's fft2 bins
+
+
+def _noise(rng, n):
+    return rng.exponential(size=n).astype(np.float32)
+
+
+def _peaks(rng, n, values):
+    """Noise with ``values`` at distinct random bins (some within a
+    template's reach of each other)."""
+    p = _noise(rng, n)
+    p[rng.choice(n, len(values), replace=False)] = values
+    return p
+
+
+def _with_nan(rng):
+    p = _peaks(rng, WIDE, [400.0, 300.0, 200.0])
+    p[777] = np.nan
+    return p
+
+
+def _zero_median(rng):
+    p = _peaks(rng, WIDE, [400.0, 300.0])
+    p[rng.choice(WIDE, int(0.6 * WIDE), replace=False)] = 0.0
+    return p
+
+
+def _middle_block(rng):
+    p = _peaks(rng, WIDE, [400.0, 300.0])
+    p[np.argsort(p)[WIDE // 2 - 3000:WIDE // 2 + 3000]] = np.float32(0.7)
+    return p
+
+
+def _sawtooth(rng):
+    """Every strided sample falls on the tooth's foot: the sample puts the
+    median near the spectrum's floor."""
+    p = (np.arange(WIDE) % (WIDE // tspur.SAMPLE)
+         + rng.uniform(0.0, 0.1, WIDE)).astype(np.float32)
+    p[[100, 9000]] = 5000.0
+    return p
+
+
+def _ramp(rng):
+    """A sorted ramp, three peaks over it."""
+    p = np.arange(WIDE, dtype=np.float32)
+    p[rng.choice(WIDE, 3, replace=False)] = [5e6, 4e6, 3e6]
+    return p
+
+
+def _infs(count):
+    def make(rng):
+        p = _peaks(rng, WIDE, [400.0, 300.0])
+        p[rng.choice(WIDE, count, replace=False)] = np.inf
+        return p
+    return make
+
+
+def _tie_at_cut(rng):
+    v = 1000.0 - np.arange(80)
+    v[tspur.CANDIDATES] = v[tspur.CANDIDATES - 1]
+    return _peaks(rng, WIDE, v)
+
+
+# case -> (spectrum from a generator, whether a scan of it takes the full
+# median or sort)
+SEARCH_CASES = {
+    "random-131072": (lambda r: _peaks(r, WIDE, [900, 700, 650, 500, 480,
+                                                 300, 200, 60, 30]), False),
+    "random-512": (lambda r: _peaks(r, 512, [900, 700, 500, 300]), False),
+    "odd-131071": (lambda r: _peaks(r, WIDE - 1, [900, 700, 500]), False),
+    "tied-candidates": (lambda r: _peaks(r, WIDE, [900, 500, 500, 300]),
+                        True),
+    "tie-at-64th-65th": (_tie_at_cut, True),
+    "over-64-candidates": (lambda r: _peaks(r, WIDE, 2000.0
+                                            - np.arange(100)), False),
+    "nan": (_with_nan, True),
+    "zero-median": (_zero_median, False),
+    "sorted-ramp": (_ramp, False),
+    "sawtooth-of-the-stride": (_sawtooth, True),
+    "block-at-the-median": (_middle_block, False),
+    "one-inf": (_infs(1), False),
+    "two-infs": (_infs(2), True),
+}
+
+
+def _tracking(js, ts):
+    """Every other active slot alive, the rest faded; the first two
+    drifted across a bin edge, up and down."""
+    bins = ts.bins.numpy()
+    amp = np.zeros((jspur.MAX_SPURS, 1), np.complex64)
+    frac = np.zeros(jspur.MAX_SPURS, np.float32)
+    active = np.flatnonzero(bins >= 0)
+    amp[active] = np.where(np.arange(len(active)) % 2 == 0, 30.0,
+                           1e-3)[:, None]
+    frac[active[:2]] = [1.3, -0.6][:len(active[:2])]
+    return (dataclasses.replace(js, amp=jnp.asarray(amp),
+                                frac=jnp.asarray(frac)),
+            dataclasses.replace(ts, amp=_t(amp), frac=_t(frac)))
+
+
+@pytest.mark.parametrize("case", list(SEARCH_CASES))
+def test_spur_search_selection_matches_full_sort(case):
+    """Three scans (acquire; drop the faded and re-centre the drifted;
+    acquire on the spectrum rolled by 37 bins) by the port's manager and
+    the JAX package's: slots, ages and state exact after each.  Where the
+    port selects, its median is ``np.median``'s bit for bit and its
+    candidates the full sort's; ``spur_full_sorts`` counts the scans of a
+    wide spectrum that fell back."""
+    make, falls_back = SEARCH_CASES[case]
+    p = make(np.random.default_rng(61))
+    n = len(p)
+    geo = derive_geometry(_TINY)
+    tgeo = t_derive_geometry(convert.params_from_jax(_TINY))
+    jm = jspur.SpurManager(geo, drop_after=1)
+    tm = tspur.SpurManager(tgeo, drop_after=1)
+    js, ts = _spur_state([], [], 1)
+    kw = dict(protect_lo=n // 3 - 7, protect_hi=n // 3 + 7)
+    before = trace.counters["spur_full_sorts"]
+    js, ts = _scan_pair(jm, tm, p, js, ts, **kw)
+    assert (ts.bins >= 0).sum() >= 1
+    js, ts = _tracking(js, ts)
+    js, ts = _scan_pair(jm, tm, p, js, ts, **kw)
+    js, ts = _scan_pair(jm, tm, np.roll(p, 37), js, ts, **kw)
+    wide = n >= tspur.SELECT_MIN
+    assert trace.counters["spur_full_sorts"] - before == (
+        3 if wide and falls_back else 0)
+    p64 = np.asarray(p, np.float64)
+    if not wide or np.isnan(p64).any():
+        return
+    med = np.median(p64)
+    got = tspur.select_median(p64)
+    assert got is None or got.tobytes() == med.tobytes()
+    thr = tm.ston * med
+    cand = tspur.select_candidates(p64, thr)
+    full = [int(b) for b in np.argsort(p64)[::-1][:tspur.CANDIDATES]]
+    if cand is not None:
+        assert cand.tolist() == [b for b in full if p64[b] >= thr]
+    assert (got is None or cand is None) == falls_back
+
+
+def test_spur_full_sorts_counts_fallbacks():
+    """0 over scans of a random full-size spectrum, 1 for a scan of one
+    whose candidates tie; none below SELECT_MIN bins."""
+    tgeo = t_derive_geometry(convert.params_from_jax(_TINY))
+    tm = tspur.SpurManager(tgeo)
+    rng = np.random.default_rng(62)
+    _js, ts = _spur_state([], [], 1)
+    sorts, scans = (trace.counters[k] for k in ("spur_full_sorts",
+                                                "spur_scans"))
+    for _ in range(3):
+        ts = tm.scan(_peaks(rng, WIDE, [900.0, 500.0]), ts)
+    assert trace.counters["spur_scans"] - scans == 3
+    assert trace.counters["spur_full_sorts"] == sorts
+    ts = tm.scan(_peaks(rng, WIDE, [800.0, 800.0]), ts)
+    assert trace.counters["spur_full_sorts"] == sorts + 1
+    ts = tm.scan(_peaks(rng, 512, [800.0, 800.0]), ts)
+    assert trace.counters["spur_full_sorts"] == sorts + 1
 
 
 # ---- the slice: Receiver against Receiver ----------------------------
