@@ -12,12 +12,13 @@ configuration as a short script.
 
 Generates a drifting CW signal by default; give a .wav path as the
 second argument to serve a recording instead.  The GUI listens on
-127.0.0.1 only.  ``--trace PATH`` turns the port's tracer on before the
-receiver is made (``utils/trace.py``: its graphs then time every stage
-on the device), adds ``timing`` to ``/status.json`` (ms a block by span,
-the device's busy share, idle ms a block by span, the stages' device
-ms: Linrad's timing display, timing.c) and writes the spans and device
-intervals to PATH as a Chrome trace at exit.
+127.0.0.1 only.  ``--trace PATH`` turns the port's tracer on
+(``utils/trace.py``: the receiver's graphs then replay stage-timed
+twins that time every stage on the device), adds ``timing`` to
+``/status.json`` (ms a block by span, the device's busy share, idle ms
+a block by span, the stages' device ms: Linrad's timing display,
+timing.c) and writes the spans and device intervals to PATH as a Chrome
+trace at exit.
 """
 
 from __future__ import annotations

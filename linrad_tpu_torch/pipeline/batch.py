@@ -104,11 +104,26 @@ class GraphedStep:
     made at first use; none of that may happen inside a capture.  The
     warm-up and the capture are the tracer's set-up spans
     ``graph.warmup`` and ``graph.capture`` (``utils/trace.py``), under
-    the block id ``trace_id``.  A graph captured while the tracer's
-    device intervals are on records a timing-event pair at each stage of
-    the step (``stages``: name, start and end event), so that each
-    replay gives every stage's device time; each call is a device
-    interval ``graph.replay`` then.
+    the block id ``trace_id``.  The graph carries no timing event.
+
+    While the tracer's device intervals are on, a call replays one of
+    the step's two stage-timed twins instead, in turns: the same body
+    captured again, at the first such call and on the calling thread,
+    each into a graph of its own (its own memory pool, this step's
+    tables, state and input) that records a timing-event pair at each
+    stage of the step, so that each replay gives every stage's device
+    time.  Two, so that a replay's events are read after the next
+    replay has been enqueued (``trace.after_replay``), while the device
+    works, and not while it waits for the host: a replay records its
+    twin's events anew.  Each twin's warm-up of one step and its capture
+    are a set-up span ``graph.timed_capture``.  A twin replay runs the
+    same kernels on the same data, so its outputs and state are the
+    graph's bit for bit; ``outputs`` are the twin's after it.  A step
+    that records no stage keeps no twin (``timed_stages`` empty) and
+    replays its graph.  The twins are kept, for the next time tracing is
+    on, until this object is freed; ``kernels`` counts the graph's
+    kernels, and a twin's capture adds to the recorded calls as any
+    capture does.  Each call is a device interval ``graph.replay`` then.
 
     On a CPU device there is no graph: each call runs the same body, the
     write-back of the state included, eagerly."""
@@ -135,11 +150,13 @@ class GraphedStep:
             self.device, self.block = share.device, share.block
         self.replays = 0
         self.kernels = 0
-        self.stages: list = []
         self.trace_id = trace.next_id()
         trace.watch("graph_replays", self, "replays")
         self.graph = None
         self._outs = None
+        self._graph_outs = None
+        self._twins = None      # two _TimedTwin, or False: no stage
+        self._turn = 0          # the twin the next timed call replays
         if self.device.type == "cuda":
             self._capture(warmup, recorded or (lambda: 0))
 
@@ -167,24 +184,56 @@ class GraphedStep:
     def _capture(self, warmup: int, recorded: Callable[[], int]) -> None:
         dev = self.device
         self.stream = torch.cuda.Stream(dev)
-        self.stream.wait_stream(torch.cuda.current_stream(dev))
         with trace.setup("graph.warmup", self.trace_id):
-            with torch.cuda.stream(self.stream):
-                s = self._state
-                for _ in range(max(1, warmup)):
-                    s, _out = self._step(self._tables, s, self.block,
-                                         *self._args)
-            self.stream.synchronize()
-        del s, _out
+            self._warm(warmup)
         with trace.setup("graph.capture", self.trace_id):
             before = recorded()
             self.graph = torch.cuda.CUDAGraph()
-            with trace.capturing() as stages:
+            with trace.capturing():
                 with torch.cuda.graph(self.graph, stream=self.stream):
-                    self._outs = self._body()
+                    self._outs = self._graph_outs = self._body()
             torch.cuda.synchronize(dev)
             self.kernels = recorded() - before
-        self.stages = stages
+
+    def _warm(self, steps: int) -> None:
+        """``steps`` steps on the capture stream from a scratch copy of the
+        state chain (the static state is read, never written)."""
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with trace.capturing(), torch.cuda.stream(self.stream):
+            s = self._state
+            for _ in range(max(1, steps)):
+                s, _out = self._step(self._tables, s, self.block,
+                                     *self._args)
+        self.stream.synchronize()
+
+    def _capture_twin(self):
+        """A stage-timed twin (see the class), or False where the step
+        records no stage."""
+        with trace.setup("graph.timed_capture", self.trace_id):
+            self._warm(1)
+            graph = torch.cuda.CUDAGraph()
+            with trace.capturing(timed=True) as stages:
+                with torch.cuda.graph(graph, stream=self.stream):
+                    outs = self._body()
+            torch.cuda.synchronize(self.device)
+        return _TimedTwin(graph, stages, outs, self.device) if stages \
+            else False
+
+    def _capture_twins(self):
+        """The two stage-timed twins, or False where the step records no
+        stage."""
+        first = self._capture_twin()
+        return first and (first, self._capture_twin())
+
+    @property
+    def timed_stages(self) -> list | None:
+        """The stages the stage-timed twins time, in step order (empty
+        where the step records none); None until a call with device
+        intervals on has captured them."""
+        if self._twins is None:
+            return None
+        return [name for name, _a, _b in self._twins[0].stages] \
+            if self._twins else []
 
     @property
     def args(self) -> tuple:
@@ -212,22 +261,61 @@ class GraphedStep:
         """The outputs of the last call (graph-owned on a CUDA device)."""
         return self._outs
 
+    def _load(self, block) -> None:
+        """``block`` (a tensor, or a list of them) into the static input."""
+        if isinstance(block, (list, tuple)):
+            for dst, src in zip(self.block, block, strict=True):
+                dst.copy_(src.reshape(dst.shape), non_blocking=True)
+        elif block is not None:
+            self.block.copy_(block.reshape(self.block.shape),
+                             non_blocking=True)
+
     def __call__(self, block=None):
-        if self.stages:
-            trace.before_replay(self)
-        with trace.interval("graph.replay", self.device):
-            if isinstance(block, (list, tuple)):
-                for dst, src in zip(self.block, block, strict=True):
-                    dst.copy_(src.reshape(dst.shape), non_blocking=True)
-            elif block is not None:
-                self.block.copy_(block.reshape(self.block.shape),
-                                 non_blocking=True)
-            if self.graph is None:
-                self._outs = self._body()
-            else:
-                self.graph.replay()
+        if trace.device_on() and self.graph is not None:
+            return self._timed_call(block)
+        self._load(block)
+        if self.graph is None:
+            self._outs = self._body()
+        else:
+            self.graph.replay()
+            self._outs = self._graph_outs
         self.replays += 1
-        return self.outputs
+        return self._outs
+
+    def _timed_call(self, block):
+        """A call while device intervals are on: a twin's replay, in
+        turns (the graph's where the step has no stage), as a
+        ``graph.replay`` interval; then the completed readings."""
+        if self._twins is None:
+            self._twins = self._capture_twins()
+        twin = self._twins[self._turn] if self._twins else None
+        if twin is not None:
+            self._turn ^= 1
+            trace.before_replay(twin)
+        with trace.interval("graph.replay", self.device):
+            self._load(block)
+            (self.graph if twin is None else twin.graph).replay()
+        if twin is None:
+            self._outs = self._graph_outs
+        else:
+            twin.replays += 1
+            trace.after_replay()
+            self._outs = twin.outs
+        self.replays += 1
+        return self._outs
+
+
+class _TimedTwin:
+    """A GraphedStep's stage-timed twin: its graph, the outputs in the
+    graph's pool, the stages' events (name, start and end event) and its
+    replays, as the tracer's ``before_replay`` reads them."""
+
+    __slots__ = ("graph", "stages", "outs", "device", "replays")
+
+    def __init__(self, graph, stages: list, outs, device: torch.device):
+        self.graph, self.stages, self.outs = graph, stages, outs
+        self.device = device
+        self.replays = 0
 
 
 class _Slot:

@@ -18,7 +18,8 @@ per-thread shares of menu.c:914-957).  The port's counterpart:
   off costs that check and nothing else.  While the profiler records,
   each span is also a ``record_function`` range of its name, so that the
   program's spans nest with the device's kernels on the profiler's clock.
-- **Set-up spans** (:func:`setup`: ``graph.warmup``, ``graph.capture``)
+- **Set-up spans** (:func:`setup`: ``graph.warmup``, ``graph.capture``,
+  and ``graph.timed_capture``, each of a graph's stage-timed twins)
   record whether tracing is on or not; they run once per graph.
 - **Counters** (:data:`counters`) are plain integers and always on:
   ``h2d_bytes`` and ``d2h_bytes``, the bytes the program hands from host
@@ -35,7 +36,10 @@ per-thread shares of menu.c:914-957).  The port's counterpart:
   :func:`report` also reads the counters kept elsewhere: the controls'
   ``host_reads`` and ``spur_slots`` (active slots after the latest
   scan), the graphs' ``replays`` and the hand kernels' launches
-  (``utils/cuda_build.COUNTS``).
+  (``launches``: ``utils/cuda_build.COUNTS``, each kernel's launches
+  outside a capture and its calls recorded into CUDA graphs; the capture
+  of a graph's stage-timed twins adds to the recorded calls, as any
+  capture does).
 - **Device intervals** (after :func:`enable`, on a CUDA device): a
   timing-event pair around each graph replay, each block's copy in and
   the other device work a span names (``span(..., device=...)``), read
@@ -43,18 +47,24 @@ per-thread shares of menu.c:914-957).  The port's counterpart:
   through an anchor event recorded on an idle device.  An interval opens
   when the stream reaches its first event: on an idle stream that is when
   the host records it, so the enqueue of its first operation counts as
-  busy.  A graph captured after :func:`enable` carries a timing-event
-  pair at each stage boundary (:func:`stage`), so each of its replays
-  gives every stage's device time (a stage entered twice in a step, as
-  ``step.fft2`` is around the spur canceller's ``step.spur``, summed a
-  replay); one captured with tracing off carries no extra node.  The
-  profiler alone turns on no event and no synchronisation: the program
-  adds no device operation to a profiled run.
+  busy.  While device intervals are on, a ``GraphedStep`` replays
+  stage-timed twins of its graph in turns (``pipeline/batch.py``),
+  captured at the first such replay: the same kernels with a
+  timing-event pair at each stage boundary (:func:`stage`), so each
+  replay gives every stage's device time (a stage entered twice in a
+  step, as ``step.fft2`` is around the spur canceller's ``step.spur``,
+  summed a replay), read after the next replay has been enqueued
+  (:func:`after_replay`), while the device works.  The graph replayed
+  with tracing off carries no extra node, whenever tracing was turned
+  on.  The profiler alone turns on no event and no synchronisation: the
+  program adds no device operation to a profiled run.
 
 :func:`report` returns the totals, the device's busy time a block, its
 idle share, each idle gap's time by the innermost span open at its
 midpoint, the spread of device ms per replay and the stages' device ms;
-:func:`write` writes the spans and device intervals as a Chrome trace.
+:func:`idle_ms` sums a report's idle gaps, all or those under spans of
+some names; :func:`write` writes the spans and device intervals as a
+Chrome trace.
 The tracer is the process's, as the profiler is: :func:`reset` clears it.
 """
 
@@ -96,10 +106,11 @@ _totals: dict = {}               # name -> [count, ns, self ns]
 _intervals: deque = deque(maxlen=RING)   # (name, block, t0 ns, t1 ns)
 _pending: deque = deque()        # (name, block, index, ev0, ev1, anchor)
 _stage_reads: deque = deque()    # (graph, replays, block, anchor)
-_stage_ms: dict = {}             # name -> [replays read, device ms]
+_stage_log: deque = deque(maxlen=RING)   # (host ns, {name: ms}) a replay
 _anchors: dict = {}              # device index -> (event, host ns)
 _free: dict = {}                 # device index -> [timing events]
 _capture = None                  # a list while a GraphedStep captures
+_timed = False                   # the capture records the stages' events
 _watched: dict = {}              # report's name -> (attribute, objects)
 _missed = [0]                    # stage readings lost to a later replay
 
@@ -200,8 +211,9 @@ class _Interval:
 
 
 class _StageEvents:
-    """A stage of a step under a CUDA graph's capture: a timing-event pair
-    recorded into the graph (external events: each replay records them)."""
+    """A stage of a step under a timed CUDA graph capture: a timing-event
+    pair recorded into the graph (external events: each replay records
+    them)."""
 
     __slots__ = ("name", "ev0")
 
@@ -224,8 +236,8 @@ class _StageEvents:
 
 def enable() -> None:
     """Turn tracing on (the operator's switch): spans record, and on a
-    CUDA device so do device intervals and the stages of graphs captured
-    from now on."""
+    CUDA device so do device intervals and, through the graphs'
+    stage-timed twins, the stages of every graph replayed from now on."""
     global _enabled, _on, _device
     _enabled = _on = True
     _device = torch.cuda.is_available()
@@ -248,9 +260,10 @@ def reset() -> None:
     """Forget every span, total, device interval and stage reading, and
     zero the counters (the switch stays as it is)."""
     with _lock:
-        for store in (_spans, _intervals, _pending, _stage_reads):
+        for store in (_spans, _intervals, _pending, _stage_reads,
+                      _stage_log):
             store.clear()
-        for d in (_totals, _stage_ms, _anchors):
+        for d in (_totals, _anchors):
             d.clear()
         _roots.clear()
         _setups.clear()
@@ -323,38 +336,47 @@ def interval(name: str, device):
 
 def stage(name: str):
     """A stage of a step (``step.fft1``): a span when the step runs
-    eagerly; under a GraphedStep's capture with device intervals on, a
-    timing-event pair recorded into the graph; nothing else then."""
+    eagerly; under a GraphedStep's timed capture, a timing-event pair
+    recorded into the graph; under its other captures and warm-ups,
+    nothing."""
     if not _on:
         return _OFF
     if _capture is not None:
-        return _StageEvents(name) if _device else _OFF
+        return _StageEvents(name) if _timed else _OFF
     return _open(name)
 
 
 @contextlib.contextmanager
-def capturing():
-    """Around a GraphedStep's capture: yields the list that the stages'
-    event pairs go into (empty unless device intervals are on)."""
-    global _capture
-    _capture = []
+def capturing(timed: bool = False):
+    """Around a GraphedStep's warm-up or capture: the stages record no
+    span, and with ``timed`` each records its event pair into the list
+    this yields."""
+    global _capture, _timed
+    _capture, _timed = [], timed
     try:
         yield _capture
     finally:
-        _capture = None
+        _capture, _timed = None, False
 
 
 def before_replay(graph) -> None:
-    """Before a replay of ``graph``, whose ``stages`` were captured: what
-    its last replay recorded is read now if it has completed (the replay
-    records the same events anew), and this replay's stage events are
-    read once they have completed, unless the graph is replayed again
-    first."""
-    _resolve()
+    """Before a replay of ``graph``, whose ``stages`` were captured: its
+    last replay's stage events are read now if that has not been done
+    and they have completed (the replay records the same events anew),
+    and this replay's are read once they have completed (by
+    :func:`after_replay`, a root span's end or a report), unless the
+    graph is replayed again first."""
+    _resolve_stages(graph)
     stack = _stack()
     block = stack[-1].block if stack else 0
     _stage_reads.append((graph, graph.replays + 1, block,
                          _anchor(_index(graph.device))))
+
+
+def after_replay() -> None:
+    """After a replay has been enqueued: read the device intervals and
+    stage events that have completed, while the device works."""
+    _resolve()
 
 
 # ---- device events ----------------------------------------------------
@@ -415,6 +437,11 @@ def _host_ns(anchor: tuple, ev) -> int:
 
 def _resolve() -> None:
     """Read the device intervals and stage events that have completed."""
+    _resolve_intervals()
+    _resolve_stages()
+
+
+def _resolve_intervals() -> None:
     keep = deque()
     while _pending:
         item = _pending.popleft()
@@ -429,10 +456,18 @@ def _resolve() -> None:
     if len(keep) > RING:     # never completed: the device was lost
         keep = deque(list(keep)[-RING:])
     _pending.extend(keep)
+
+
+def _resolve_stages(only=None) -> None:
+    """Read the stage events that have completed: every graph's, or those
+    of the graph ``only``."""
     keep = deque()
     while _stage_reads:
         item = _stage_reads.popleft()
         graph, replays, block, anchor = item
+        if only is not None and graph is not only:
+            keep.append(item)
+            continue
         if graph.replays != replays:
             _missed[0] += 1                  # re-recorded by a later replay
             continue
@@ -448,10 +483,7 @@ def _resolve() -> None:
         for name, a, b in spans:
             per_replay[name] = per_replay.get(name, 0.0) + b - a
         with _lock:
-            for name, ms in per_replay.items():
-                tot = _stage_ms.setdefault(name, [0, 0.0])
-                tot[0] += 1
-                tot[1] += ms
+            _stage_log.append((base, per_replay))
             for name, a, b in spans:
                 _intervals.append((name, block, base + int(a * 1e6),
                                    base + int(b * 1e6)))
@@ -568,18 +600,31 @@ def _watched_counters() -> dict:
     return out
 
 
+def _stages_since(since_ns: int | None) -> dict:
+    """name -> (replays read, device ms) of the last :data:`RING` replays
+    read, those whose first stage began from ``since_ns`` on."""
+    out: dict = {}
+    for t, per_replay in _stage_log:
+        if since_ns is None or t >= since_ns:
+            for name, ms in per_replay.items():
+                k, total = out.get(name, (0, 0.0))
+                out[name] = (k + 1, total + ms)
+    return out
+
+
 def report(since_ns: int | None = None) -> dict:
     """What the tracer holds: span totals, ms a block by span (over the
-    root spans' count; the set-up spans left out), the counters, and, where device intervals were
-    recorded, the device's busy and idle time and the stages' device ms.
-    ``since_ns``: the spans and intervals from that host time on (the
-    totals always hold everything since the last :func:`reset`)."""
+    root spans' count; the set-up spans left out), the counters, and,
+    where device intervals were recorded, the device's busy and idle time
+    and the stages' device ms a replay.  ``since_ns``: the spans,
+    intervals and stage readings from that host time on (the totals
+    always hold everything since the last :func:`reset`)."""
     _resolve()
     with _lock:
         spans = [s for s in _spans if since_ns is None or s[3] >= since_ns]
         ivs = [iv for iv in _intervals
                if since_ns is None or iv[2] >= since_ns]
-        stage_ms = {k: tuple(v) for k, v in _stage_ms.items()}
+        stage_ms = _stages_since(since_ns)
         count = dict(counters)
         roots, setups = set(_roots), set(_setups)
     tot = totals()
@@ -603,6 +648,19 @@ def report(since_ns: int | None = None) -> dict:
                              default=0),
         "stage_readings_missed": _missed[0],
     }
+
+
+def idle_ms(dev: dict, *prefixes: str) -> float | None:
+    """ms the device stood idle in a device report (``report()["device"]``):
+    its window less its busy time, or, given ``prefixes``, the idle gaps
+    whose innermost open span's name starts with one of them (``"control."``:
+    the card waiting on the host's control).  None for an empty report."""
+    if not dev:
+        return None
+    if not prefixes:
+        return 1e3 * (dev["window_s"] - dev["busy_s"])
+    return sum(ms for name, ms in dev["idle_ms_by_span"].items()
+               if name.startswith(prefixes))
 
 
 def timing(window_s: float = 2.0) -> dict:

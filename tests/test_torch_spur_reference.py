@@ -318,7 +318,8 @@ def test_card_graphed_equals_eager_at_full_size(card, tracing):
     """6 blocks of the grabber's traffic through the graphed and the eager
     Receiver at full size: every output field, the AFC's status and the
     spur slots equal bit for bit, the first scan adding slots; with
-    tracing on the graphs carry ``step.spur``'s events."""
+    tracing on the graphs' stage-timed twins, which the graphed receiver
+    replays then, carry ``step.spur``'s events."""
     blocks = card_blocks(card)
     trace.disable()
     trace.reset()
@@ -345,7 +346,8 @@ def test_card_graphed_equals_eager_at_full_size(card, tracing):
         assert a[2]["age"] == b[2]["age"], step
     assert int((graphed[0][2]["bins"] >= 0).sum()) > 0
     if tracing:
-        names = [s[0] for g in rx.graphs.values() for s in g.stages]
+        names = [n for g in rx.graphs.values()
+                 for n in (g.timed_stages or [])]
         assert "step.spur" in names
         assert rep["stage_ms"]["step.spur"] > 0
         print(f"card: step.spur {rep['stage_ms']['step.spur']:.4f} ms a "

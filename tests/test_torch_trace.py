@@ -1,12 +1,17 @@
 """The port's tracer (linrad_tpu_torch/utils/trace.py): spans, their
-switch, set-up spans, counters, the device report's arithmetic, the
-Chrome trace; the spans and counters of a Receiver with the AFC on, of
-one with the spur canceller and of a FleetRunner, and their outputs
-bit-identical with tracing on and off; the stage spans of an eager step.
+switch, set-up spans, counters, the device report's arithmetic and its
+idle sums, the Chrome trace; the spans and counters of a Receiver with
+the AFC on, of one with the spur canceller and of a FleetRunner, and
+their outputs bit-identical with tracing on and off; the stage spans of
+an eager step; the stages under a capture, and a GraphedStep's choice
+between its graph and its stage-timed twin (on a stand-in graph).
 
 The tests marked ``card`` need a CUDA device (they skip here): the
-device intervals against CUDA events, the stage events of a graph
-captured with tracing on, and the flagship Receiver's outputs with
+device intervals against CUDA events, the stage events of the
+stage-timed twins (a receiver built with tracing on, one built with it
+off and then turned on, and off again), the twins' outputs bit-identical
+to the graphs' (flagship, EME across the AFC's structure switch, the
+QRSS grabber with spur slots), and the flagship Receiver's outputs with
 tracing on and off.  They decide so in the ``card`` fixture below.
 This file imports no JAX and needs nothing of ``tests/conftest.py``
 (which imports JAX), so that on the machine with the card
@@ -23,8 +28,10 @@ import numpy as np
 import pytest
 import torch
 
-from linrad_tpu_torch import RxMode, flagship_params, preset
+from linrad_tpu_torch import RxMode, derive_geometry, flagship_params, preset
 from linrad_tpu_torch.parallel import FleetRunner
+from linrad_tpu_torch.pipeline import batch
+from linrad_tpu_torch.pipeline.batch import GraphedStep, tensor_leaves
 from linrad_tpu_torch.pipeline.receiver import Receiver
 from linrad_tpu_torch.utils import trace
 
@@ -243,6 +250,198 @@ def test_device_report_arithmetic(tracer):
     assert dev["replay_ms"]["count"] == 2
     assert dev["replay_ms"]["median"] == pytest.approx(450e-6)
     assert dev["replay_ms"]["max"] == pytest.approx(500e-6)
+
+
+def test_idle_sums_by_the_innermost_span(tracer):
+    """The idle sums over a device report: all of it (the window less the
+    busy union), the driver's (gaps under ``rx.*`` or ``multi.*``) and the
+    control's (under ``control.*`` or ``spur.*``), on spans and intervals
+    set by hand (host nanoseconds); a gap under no span counts only in
+    the whole, and ``control.wait``, the host waiting on the card, leaves
+    no gap here."""
+    spans = [("rx.h2d", "rx.block", 1, 0, 100, 1, 0),
+             ("rx.replay", "rx.block", 1, 100, 200, 1, 0),
+             ("control.wait", "control.update", 1, 200, 500, 2, 0),
+             ("spur.search", "control.spur", 1, 500, 800, 3, 0),
+             ("control.spur", "control.update", 1, 490, 900, 2, 0),
+             ("control.update", "rx.block", 1, 200, 950, 1, 0),
+             ("rx.block", None, 1, 0, 1000, 0, 0),
+             ("multi.h2d", "multi.block", 2, 1100, 1200, 1, 0),
+             ("multi.block", None, 2, 1100, 1500, 0, 0)]
+    ivs = [("rx.h2d", 1, 20, 100), ("graph.replay", 1, 150, 500),
+           ("step.fft1", 1, 150, 300), ("rx.owned", 1, 860, 980),
+           ("multi.h2d", 2, 1180, 1400)]
+    dev = trace._device_report(spans, ivs)
+    assert dev["idle_ms_by_span"] == pytest.approx(
+        {"rx.replay": 50e-6, "spur.search": 360e-6, "other": 200e-6})
+    whole = trace.idle_ms(dev)
+    assert whole == pytest.approx((1380 - 770) * 1e-6)
+    assert whole == pytest.approx(sum(dev["idle_ms_by_span"].values()))
+    driver = trace.idle_ms(dev, "rx.", "multi.")
+    control = trace.idle_ms(dev, "control.", "spur.")
+    assert driver == pytest.approx(50e-6)
+    assert control == pytest.approx(360e-6)
+    assert driver + control <= whole
+    assert trace.idle_ms(dev, "radar.") == 0.0
+    assert trace.idle_ms({}) is None
+    assert trace.idle_ms({}, "rx.") is None
+
+
+def test_stage_readings_since_a_time(tracer):
+    """``report(since_ns)`` averages the stages of the replays read from
+    that time on; without it, every replay since the last reset."""
+    trace._stage_log.extend([(100, {"step.a": 1.0}),
+                             (200, {"step.a": 3.0, "step.b": 2.0}),
+                             (300, {"step.a": 5.0, "step.b": 4.0})])
+    rep = trace.report(since_ns=150)
+    assert rep["stage_ms"] == pytest.approx({"step.a": 4.0, "step.b": 3.0})
+    assert rep["stage_replays"] == 2
+    assert trace.report(since_ns=301)["stage_ms"] == {}
+    whole = trace.report()
+    assert whole["stage_ms"] == pytest.approx({"step.a": 3.0,
+                                               "step.b": 3.0})
+    assert whole["stage_replays"] == 3
+    trace.reset()
+    assert not trace._stage_log and trace.report()["stage_ms"] == {}
+
+
+def test_stages_under_a_capture(tracer):
+    """A stage under a graph's capture or warm-up is the no-op span with
+    tracing on or off; under a timed capture, with tracing on, an event
+    pair that goes into the capture's list (entered only on a card)."""
+    for on in (False, True):
+        if on:
+            trace.enable()
+        with trace.capturing() as stages:
+            assert trace.stage("step.fft1") is trace._OFF
+        assert stages == []
+    with trace.capturing(timed=True):
+        assert isinstance(trace.stage("step.fft1"), trace._StageEvents)
+    assert isinstance(trace.stage("step.fft1"), trace._Span)
+    trace.disable()
+    with trace.capturing(timed=True):
+        assert trace.stage("step.fft1") is trace._OFF
+
+
+@dataclasses.dataclass
+class _Toy:
+    x: torch.Tensor
+
+
+def toy_step(tables, state, block):
+    """A two-stage step on a toy state: x + sum(block), then twice it."""
+    with trace.stage("step.a"):
+        x = state.x + block.sum()
+    with trace.stage("step.b"):
+        y = 2.0 * x
+    return _Toy(x=x), y
+
+
+def toy_blocks(n: int) -> list:
+    return [torch.arange(4, dtype=torch.float32) + i for i in range(n)]
+
+
+def test_cpu_graphed_step_with_tracing_on(tracer):
+    """On a CPU device tracing changes nothing of a GraphedStep: no graph
+    and no twin, the body run eagerly with each stage a span of its
+    caller, the outputs and state those of tracing off."""
+    def run(on: bool):
+        g = GraphedStep(toy_step, None, _Toy(x=torch.zeros(())), (4,),
+                        torch.float32)
+        if on:
+            trace.enable()
+        outs = []
+        with trace.root("t.block"):
+            for b in toy_blocks(3):
+                outs.append(g(b).clone())
+        trace.disable()
+        return g, outs
+
+    g_off, off = run(False)
+    g_on, on = run(True)
+    assert g_on.graph is None and g_on.timed_stages is None
+    assert g_on.replays == g_off.replays == 3
+    for a, b in zip(off, on):
+        assert torch.equal(a, b)
+    assert torch.equal(g_off.state.x, g_on.state.x)
+    assert torch.equal(g_on.outputs, on[-1])
+    tot = trace.totals()
+    assert tot["step.a"]["count"] == tot["step.b"]["count"] == 3
+    assert {r[1] for r in trace.records() if r[0].startswith("step.")} \
+        == {"t.block"}
+    assert "graph.timed_capture" not in tot
+    rep = trace.report()
+    assert rep["stage_ms"] == {} and rep["device"] == {}
+
+
+class _StandIn:
+    """A stand-in for a captured CUDA graph: counts its replays."""
+
+    def __init__(self):
+        self.replays = 0
+
+    def replay(self):
+        self.replays += 1
+
+
+def test_graph_or_twins_by_the_switch(tracer, monkeypatch):
+    """A GraphedStep with a graph (a stand-in here) replays it while
+    device intervals are off, with no stage read; while they are on it
+    captures its two twins at the first call, once, and replays them in
+    turns, each replay's stages asked for before it and the completed
+    readings taken after it, its outputs the twin's; off again, the
+    graph and its outputs; on again, the same twins.  A step without
+    stages keeps none and replays its graph."""
+    g = GraphedStep(toy_step, None, _Toy(x=torch.zeros(())), (4,),
+                    torch.float32)
+    main, main_outs = _StandIn(), torch.zeros(1)
+    g.graph, g._graph_outs = main, main_outs
+    made, calls = [], []
+
+    def capture_twin():
+        made.append(batch._TimedTwin(_StandIn(), [("step.a", None, None)],
+                                     torch.full((1,), len(made) + 1.0),
+                                     g.device))
+        return made[-1]
+
+    monkeypatch.setattr(g, "_capture_twin", capture_twin)
+    monkeypatch.setattr(trace, "before_replay",
+                        lambda twin: calls.append(("before", twin)))
+    monkeypatch.setattr(trace, "after_replay",
+                        lambda: calls.append(("after", None)))
+    switch = [False]
+    monkeypatch.setattr(trace, "device_on", lambda: switch[0])
+    blocks = toy_blocks(9)
+
+    assert g(blocks[0]) is main_outs and g.outputs is main_outs
+    assert (main.replays, made, calls) == (1, [], [])
+    assert g.timed_stages is None
+    switch[0] = True
+    got = [g(b) for b in blocks[1:4]]
+    assert len(made) == 2
+    t0, t1 = made
+    assert got == [t0.outs, t1.outs, t0.outs] and g.outputs is t0.outs
+    assert torch.equal(g.block, blocks[3])
+    assert (main.replays, t0.graph.replays, t1.graph.replays) == (1, 2, 1)
+    assert (t0.replays, t1.replays) == (2, 1)
+    assert calls == [("before", t0), ("after", None), ("before", t1),
+                     ("after", None), ("before", t0), ("after", None)]
+    assert g.timed_stages == ["step.a"]
+    switch[0] = False
+    for b in blocks[4:6]:
+        assert g(b) is main_outs
+    assert (main.replays, len(calls)) == (3, 6)
+    switch[0] = True
+    assert g(blocks[6]) is t1.outs
+    assert (len(made), t1.replays, g.replays) == (2, 2, 7)
+    assert g.kernels == 0
+
+    # a step that records no stage: no twin, its graph replayed
+    g._twins = None
+    monkeypatch.setattr(g, "_capture_twin", lambda: False)
+    assert g(blocks[7]) is main_outs and g(blocks[8]) is main_outs
+    assert g.timed_stages == [] and main.replays == 5
+    assert len(calls) == 8
 
 
 def test_chrome_trace(tracer, tmp_path):
@@ -478,22 +677,28 @@ def _closed_loop(rx, blocks: list) -> list:
 def test_card_device_intervals_against_cuda_events(tracer, card):
     """Each replay's device interval lies on the host's clock within its
     rx.replay span's reach and takes as long as CUDA events around a
-    replay alone; the device report reads an idle share in (0, 1)."""
+    replay alone (of the stage-timed twins, which a replay with tracing
+    on runs); the device report reads an idle share in (0, 1) and the
+    stages."""
     rx = Receiver(flagship_params(), device=card)
-    assert all(not g.stages for g in rx.graphs.values())
+    assert all(g.timed_stages is None for g in rx.graphs.values())
     blocks = noise_blocks(rx.geo, 40)
+    trace.enable()
     _closed_loop(rx, blocks[:5])
     g = rx.graphs["bin"]
+    assert g.timed_stages == FLAGSHIP_STAGES
+    trace.disable()
     alone = []
-    for _ in range(20):
+    for k in range(20):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         a.record()
-        g()
+        g._twins[k % 2].graph.replay()
         b.record()
         torch.cuda.synchronize()
         alone.append(a.elapsed_time(b))
+    trace.reset()
     trace.enable()
     outer0 = torch.cuda.Event(enable_timing=True)
     outer1 = torch.cuda.Event(enable_timing=True)
@@ -519,21 +724,26 @@ def test_card_device_intervals_against_cuda_events(tracer, card):
     assert 0.0 < rep["device"]["idle_share"] < 1.0
     assert rep["device"]["replay_ms"]["count"] == len(blocks)
     assert rep["device"]["busy_ms_per_block"] >= np.median(ms) * 0.99
-    assert rep["stage_ms"] == {}
+    assert set(rep["stage_ms"]) == set(FLAGSHIP_STAGES)
 
 
 @pytest.mark.card
 def test_card_stage_events_in_a_graph_captured_with_tracing_on(tracer,
                                                                card):
-    """A graph captured after enable() times each stage on the device at
-    every replay of the closed loop; the stages fill most of a replay."""
+    """A receiver built with tracing on: its graph carries no timing
+    event, and its first replay captures the two stage-timed twins,
+    which time each stage on the device at every replay of the closed
+    loop; the stages fill most of a replay."""
     trace.enable()
     rx = Receiver(flagship_params(), device=card)
     g = rx.graphs["bin"]
-    assert [name for name, _a, _b in g.stages] == FLAGSHIP_STAGES
+    assert g.timed_stages is None
+    assert "graph.timed_capture" not in trace.totals()
     blocks = noise_blocks(rx.geo, 30)
     _closed_loop(rx, blocks)
     torch.cuda.synchronize()
+    assert g.timed_stages == FLAGSHIP_STAGES
+    assert trace.totals()["graph.timed_capture"]["count"] == 2
     rep = trace.report()
     assert rep["stage_replays"] == len(blocks)
     assert rep["stage_readings_missed"] == 0
@@ -544,16 +754,175 @@ def test_card_stage_events_in_a_graph_captured_with_tracing_on(tracer,
 
 
 @pytest.mark.card
+def test_card_stage_times_after_enable_on_a_receiver_built_off(tracer,
+                                                               card):
+    """A receiver built and run with tracing off, then turned on: every
+    stage's device ms from the next replay on, each at most a replay's;
+    each twin's capture one set-up span."""
+    rx = Receiver(flagship_params(), device=card)
+    blocks = noise_blocks(rx.geo, 25)
+    _closed_loop(rx, blocks[:5])
+    assert trace.report()["stage_ms"] == {}
+    trace.enable()
+    since = time.perf_counter_ns()
+    _closed_loop(rx, blocks[5:])
+    torch.cuda.synchronize()
+    rep = trace.report(since_ns=since)
+    assert rep["stage_replays"] == 20
+    assert rep["stage_readings_missed"] == 0
+    assert set(rep["stage_ms"]) == set(FLAGSHIP_STAGES)
+    replay = rep["device"]["replay_ms"]["median"]
+    for name, ms in rep["stage_ms"].items():
+        assert 0.0 < ms <= replay, name
+    assert trace.totals()["graph.timed_capture"]["count"] == 2
+    assert "graph.timed_capture" not in rep["ms_per_block"]
+
+
+@pytest.mark.card
+def test_card_no_stage_reads_after_disable(tracer, card, monkeypatch):
+    """After disable() the receiver replays its graph: no stage read, no
+    event, no growth in ``stage_replays``; on again, the same twins."""
+    rx = Receiver(flagship_params(), device=card)
+    g = rx.graphs["bin"]
+    blocks = noise_blocks(rx.geo, 30)
+    trace.enable()
+    _closed_loop(rx, blocks[:10])
+    torch.cuda.synchronize()
+    twins = g._twins
+    assert trace.report()["stage_replays"] == 10
+    assert [t.replays for t in twins] == [5, 5]
+    trace.disable()
+    with monkeypatch.context() as m:
+        def refused(*args):
+            raise AssertionError("a stage read or an event with tracing "
+                                 "off")
+        m.setattr(trace, "before_replay", refused)
+        m.setattr(trace, "_record", refused)
+        _closed_loop(rx, blocks[10:20])
+    torch.cuda.synchronize()
+    assert trace.report()["stage_replays"] == 10
+    assert not trace._stage_reads
+    assert [t.replays for t in twins] == [5, 5] and g.replays == 20
+    trace.enable()
+    _closed_loop(rx, blocks[20:])
+    torch.cuda.synchronize()
+    assert g._twins is twins and [t.replays for t in twins] == [10, 10]
+    assert trace.totals()["graph.timed_capture"]["count"] == 2
+    assert trace.report()["stage_replays"] == 20
+
+
+def qrss_params():
+    """The QRSS grabber: 96 kHz, fft1 16,384, fft2 131,072, 524,288
+    samples a step, the coherent AFC and the spur canceller."""
+    return preset(RxMode.QRSS, rx_ad_speed=96_000, spur_enable=True)
+
+
+def qrss_blocks(device, geo, steps: int) -> list:
+    """The QRSS cell's traffic (``rxbench/generators/qrss_band.py``):
+    beacons and steady birdies over noise, whose scans add spur slots."""
+    from rxbench import core
+    from rxbench.generators import qrss_band
+    spec = {**core.load_json(core.BENCH_DIR / "traffic" / "grabber.json")[
+        "ring"], "steps": steps}
+    gen = torch.Generator(device=device).manual_seed(27)
+    x = qrss_band.make_ring(geo, spec, gen, 1_000.0)
+    s = geo.samples_per_step
+    return [x[i * s:(i + 1) * s] for i in range(steps)]
+
+
+def twin_case(name: str, device):
+    """(params, dial or None, blocks) of one case of the twin test."""
+    if name == "flagship":
+        p = flagship_params()
+        return p, None, noise_blocks(derive_geometry(p), 12)
+    if name == "eme":
+        p = preset(RxMode.WCW, rx_ad_speed=48_000, rx_rf_channels=2,
+                   pol_adapt_enable=True, fft1_variant="pallas")
+        geo = derive_geometry(p)
+        s = geo.samples_per_step
+        iq = eme_input(geo, 16)
+        return p, EME_TUNE_HZ, [iq[i * s:(i + 1) * s] for i in range(16)]
+    p = qrss_params()
+    return p, 1_000.0, qrss_blocks(device, derive_geometry(p), 12)
+
+
+def twin_run(p, dial, blocks, device, traced: bool):
+    """The blocks through a receiver built with tracing off; with
+    ``traced`` the tracer is on for the run.  Each block's outputs, AFC
+    status, tuning and spur slots, and the receiver."""
+    trace.disable()
+    rx = Receiver(p, device=device)
+    if dial is not None:
+        rx.tune(dial)
+    if traced:
+        trace.enable()
+    steps = []
+    for b in blocks:
+        out = rx.process_block(b)
+        spur = rx.state.spur
+        steps.append((
+            {f.name: getattr(out, f.name) for f in dataclasses.fields(out)},
+            None if rx.afc is None else rx.afc.status,
+            [None if t is None else t.clone()
+             for t in (rx._tune_bin, rx._tune_frac, rx._tune_slope)],
+            None if spur is None else (
+                [t.clone() for t in tensor_leaves(spur)],
+                dict(rx.control.spur_manager._age))))
+    torch.cuda.synchronize()
+    trace.disable()
+    return steps, rx
+
+
+def same(x, y) -> bool:
+    if x is None or y is None:
+        return x is y
+    return torch.equal(x, y)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("case", ["flagship", "eme", "qrss"])
+def test_card_twin_bit_identical_to_the_graph(tracer, card, case):
+    """The stage-timed twins against the graphs, block after block over
+    12-16 blocks: every output field, the AFC's status and tuning, the
+    spur slots and the final state equal bit for bit; EME and the QRSS
+    grabber switch from the bin structure to the coherent AFC's, each
+    with twins of its own; the grabber's scans hold spur slots."""
+    p, dial, blocks = twin_case(case, card)
+    graphs, rx_g = twin_run(p, dial, blocks, card, traced=False)
+    switches = trace.counters["structure_switches"]
+    twins, rx_t = twin_run(p, dial, blocks, card, traced=True)
+    assert trace.counters["structure_switches"] == 2 * switches
+    assert all(g.timed_stages is None for g in rx_g.graphs.values())
+    timed = [g for g in rx_t.graphs.values() if g.timed_stages]
+    assert len(timed) == (1 if case == "flagship" else 2)
+    assert (switches >= 1) == (case != "flagship")
+    if case == "qrss":
+        assert all("step.spur" in g.timed_stages for g in timed)
+        assert int((graphs[-1][3][0][0] >= 0).sum()) > 0
+    for k, (a, b) in enumerate(zip(graphs, twins)):
+        for name, x in a[0].items():
+            assert same(x, b[0][name]), (name, k)
+        assert a[1] == b[1], k
+        assert all(same(x, y) for x, y in zip(a[2], b[2])), k
+        if a[3] is not None:
+            assert all(torch.equal(x, y) for x, y in zip(a[3][0], b[3][0]))
+            assert a[3][1] == b[3][1], k
+    for x, y in zip(tensor_leaves(rx_g.state), tensor_leaves(rx_t.state)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.card
 def test_card_outputs_bit_identical_with_tracing_on_and_off(tracer, card):
     """The flagship Receiver captured and run with tracing off, and again
-    with tracing on (stage events in its graph, device intervals around
-    its work): every output field of every block equal bit for bit."""
+    built and run with tracing on (the stage-timed twin replayed, device
+    intervals around its work): every output field of every block equal
+    bit for bit."""
     blocks = noise_blocks(Receiver(flagship_params(), device=card).geo, 12)
     off = _closed_loop(Receiver(flagship_params(), device=card), blocks)
     trace.enable()
     rx = Receiver(flagship_params(), device=card)
-    assert rx.graphs["bin"].stages
     on = _closed_loop(rx, blocks)
+    assert rx.graphs["bin"].timed_stages == FLAGSHIP_STAGES
     for a, b in zip(off, on):
         for f in dataclasses.fields(a):
             x, y = getattr(a, f.name), getattr(b, f.name)
